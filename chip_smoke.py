@@ -1,0 +1,703 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of the fleet planner on one NVIDIA GPU and check it.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
+exits non-zero without them, and whenever any phase fails.
+
+1. Build: the CUDA kernels compile from ``tpu_cc_manager_torch/csrc``.
+2. Kernels against their plain PyTorch versions, on the card, at the
+   shapes the main path gives them (K1 ``fleet_tick`` at 131,072 and
+   1,048,576 rows, K2 ``delta_scatter`` at 64 and 16,384 delta slots, K3
+   ``fleet_plan`` at ``graft_entry.entry()``'s shapes) plus a padded fleet
+   with empty slots and out-of-range indices. Every output must be equal;
+   each is timed with CUDA events (median of 25 after warm-up).
+3. Main path at 100,000 nodes: the CLI (``plan.main --from-file``) on a
+   seeded NodeList, then ``analyze_pools`` over 8 pools with a
+   ``PoolScanScratch``, twice; every report is checked against a numpy
+   evaluation on the host.
+4. Main path at 1,000,000 nodes: a ``TickSession`` adopts a synthetic
+   encoding, takes 4 incremental ticks at 1 % deltas and one forced full
+   (verifying) tick.
+5. ``graft_entry.entry()``'s function on its example fleet.
+
+Launch counts are set to 0 just before phase 3 and read just after phase
+5: each kernel must have been launched there. Lines before the last are
+findings (one JSON object each), the ``{"kernels": [...]}`` line and the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+#: where the kernels run
+DEVICE = torch.device("cuda", 0)
+#: the main path's fleet sizes (bench.py's planner tiers)
+FLEET_NODES = 100_000
+SESSION_NODES = 1_000_000
+SLICE_HOSTS = 16
+N_POOLS = 8
+DELTA_RATE = 0.01
+INCR_TICKS = 4
+#: timing: warm-up calls, then the median of this many event-timed calls
+WARM, REPS = 3, 25
+#: cycles the card spins before each timed call, so the host has queued
+#: the whole call before the start event runs (device time only)
+SPIN_CYCLES = 4_000_000
+#: the int32 compares, selects and adds K1 does per row, counted from
+#: csrc/fleet_tick.cu (histogram selects included)
+K1_OPS_PER_ROW = 64
+#: the H100 SXM data sheet's rate outside the tensor cores (67 T/s of
+#: float32); K1 and K3 are scalar integer work there
+PEAK_SCALAR_OPS = 67e12
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def finding(**kw: Any) -> None:
+    print(json.dumps(kw, sort_keys=True), flush=True)
+
+
+def device_ms(fn: Callable[[], Any]) -> float:
+    """Median device time of ``fn`` in ms over REPS event-timed calls."""
+    for _ in range(WARM):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def max_abs_err(a: Dict[str, torch.Tensor],
+                b: Dict[str, torch.Tensor]) -> int:
+    """Largest |a - b| over every output; raises unless the two dicts
+    have the same keys, dtypes and shapes."""
+    require(set(a) == set(b), f"keys differ: {sorted(a)} / {sorted(b)}")
+    worst = 0
+    for key in a:
+        require(a[key].dtype == b[key].dtype
+                and a[key].shape == b[key].shape,
+                f"{key}: {a[key].dtype}{tuple(a[key].shape)} vs "
+                f"{b[key].dtype}{tuple(b[key].shape)}")
+        diff = (a[key].long() - b[key].long()).abs()
+        worst = max(worst, int(diff.max()) if diff.numel() else 0)
+    return worst
+
+
+# ------------------------------------------------------------ inputs
+
+
+def bench_columns(n: int, nb: int, n_pools: int, pb: int, now: int,
+                  seed: int, slice_stride: int = 1) -> np.ndarray:
+    """The planner bench's mode mix (bench.py run_planner_tick_bench):
+    ~3 % divergent, ~0.2 % failed, 1 % tainted, 0.5 % failing doctors,
+    evidence ages 0-7,200 s, 16-host slices. ``slice_stride`` > 1 leaves
+    empty slots between used ones. Returns the [8, nb] block."""
+    from tpu_cc_manager_torch.plan import DOCTOR_FAILING, DOCTOR_OK, MODE_CODES
+
+    rng = np.random.default_rng(seed)
+    on = MODE_CODES["on"]
+    cols = np.zeros((8, nb), np.int32)
+    cols[0, :n] = on
+    cols[1, :n] = on
+    cols[1, :n][rng.random(n) < 0.03] = MODE_CODES["off"]
+    cols[1, :n][rng.random(n) < 0.002] = MODE_CODES["failed"]
+    cols[2] = nb - 1
+    cols[2, :n] = (np.arange(n) // SLICE_HOSTS) * slice_stride
+    cols[3] = pb - 1 if n_pools > 1 else 0
+    cols[3, :n] = np.arange(n) % n_pools
+    cols[4, :n] = rng.random(n) < 0.01
+    cols[5, :n] = np.where(rng.random(n) < 0.005, DOCTOR_FAILING, DOCTOR_OK)
+    cols[6] = -1
+    cols[6, :n] = now - rng.integers(0, 7200, n)
+    cols[7, :n] = 1
+    return cols
+
+
+def hostile_columns(nb: int, pb: int, seed: int) -> np.ndarray:
+    """Every code and index drawn past its range, negatives included:
+    the kernel must keep JAX's index rules as the plain version does."""
+    rng = np.random.default_rng(seed)
+    cols = np.stack([
+        rng.integers(-8, 9, nb), rng.integers(-8, 9, nb),
+        rng.integers(-2 * nb, 2 * nb, nb), rng.integers(-2 * pb, 2 * pb, nb),
+        rng.integers(-2, 3, nb), rng.integers(-1, 4, nb),
+        rng.integers(-5, 2_000_000, nb), rng.integers(-2, 4, nb),
+    ]).astype(np.int32)
+    cols[2, :4] = [-(2 ** 31), 2 ** 31 - 1, -1, nb]
+    return cols
+
+
+# ------------------------------------------------- phase 2: kernels
+
+
+def k1_bound_ms(n: int, pb: int, slots: int, rate: float) -> Tuple[float, str]:
+    read = 4 * 8 * n + 4 * pb
+    written = 7 * n + 2 * slots + 4 * (2 * 6 + 6 * pb)
+    t_bytes = (read + written) / rate
+    t_ops = n * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k1(rate: float) -> List[dict]:
+    from tpu_cc_manager_torch.kernels.fleet_tick import (
+        fleet_tick_block, fleet_tick_reference)
+    from tpu_cc_manager_torch.plan import MODE_CODES, bucket_nodes, bucket_pools
+
+    now, stale = int(time.time()), 3600
+    fleet_nb = bucket_nodes(FLEET_NODES)
+    pool_pb = bucket_pools(N_POOLS)
+    on = MODE_CODES["on"]
+    cases = [
+        # (name, block, pool targets): the legacy fleet tick at 100k, the
+        # 8-pool policy scan, the 1M session geometry, a padded fleet with
+        # every other slot empty, out-of-range codes and indices
+        (f"nb{fleet_nb}_pb8",
+         bench_columns(FLEET_NODES, fleet_nb, 1, 8, now, 1),
+         np.zeros(8, np.int32)),
+        (f"nb{fleet_nb}_pb{pool_pb}",
+         bench_columns(FLEET_NODES, fleet_nb, N_POOLS, pool_pb, now, 2),
+         np.full(pool_pb, on, np.int32)),
+        (f"nb{bucket_nodes(SESSION_NODES)}_pb8",
+         bench_columns(SESSION_NODES, bucket_nodes(SESSION_NODES), 1, 8,
+                       now, 3),
+         np.zeros(8, np.int32)),
+        ("padded_empty_slots",
+         bench_columns(FLEET_NODES * 7 // 10, fleet_nb, 7, 8, now, 4,
+                       slice_stride=2),
+         np.full(8, on, np.int32)),
+        ("hostile_nb1024", hostile_columns(1024, 8, 5),
+         np.random.default_rng(6).integers(-1, 7, 8).astype(np.int32)),
+    ]
+    rows = []
+    for name, cols, target_h in cases:
+        nb, pb = cols.shape[1], target_h.shape[0]
+        block = torch.from_numpy(cols).to(DEVICE)
+        target = torch.from_numpy(target_h).to(DEVICE)
+        args = (block, target, now, stale)
+        kw = {"num_pools": pb, "num_slots": nb}
+        got = fleet_tick_block(*args, **kw)
+        torch.cuda.synchronize()
+        want = fleet_tick_reference(*args, **kw)
+        err = max_abs_err(got, want)
+        require(err == 0, f"fleet_tick {name}: max |kernel - plain| = {err}")
+        n = int((cols[7] > 0).sum())
+        bound, by = k1_bound_ms(nb, pb, nb, rate)
+        row = {"shape": name, "rows": nb, "valid_rows": n, "pb": pb,
+               "max_abs_err": err,
+               "ms": device_ms(lambda: fleet_tick_block(*args, **kw)),
+               "plain_ms": device_ms(
+                   lambda: fleet_tick_reference(*args, **kw)),
+               "bound_ms": bound, "bound_by": by}
+        finding(kernel="fleet_tick", **row)
+        rows.append(row)
+    return rows
+
+
+def check_k2(rate: float) -> List[dict]:
+    from tpu_cc_manager_torch.kernels.delta_scatter import (
+        delta_scatter, delta_scatter_reference)
+    from tpu_cc_manager_torch.plan import bucket_deltas, bucket_nodes
+
+    rows = []
+    nb = bucket_nodes(SESSION_NODES)
+    for k in (50, int(SESSION_NODES * DELTA_RATE)):
+        kb = bucket_deltas(k)
+        rng = np.random.default_rng(kb)
+        base = torch.from_numpy(
+            rng.integers(-9, 9, (8, nb)).astype(np.int32)).to(DEVICE)
+        idx_h = np.full(kb, nb, np.int32)
+        idx_h[:k] = rng.choice(SESSION_NODES, k, replace=False)
+        idx = torch.from_numpy(idx_h).to(DEVICE)
+        vals = torch.from_numpy(
+            rng.integers(-9, 9, (8, kb)).astype(np.int32)).to(DEVICE)
+        got, want = base.clone(), base.clone()
+        delta_scatter(got, idx, vals)
+        torch.cuda.synchronize()
+        delta_scatter_reference(want, idx, vals)
+        err = max_abs_err({"block": got}, {"block": want})
+        require(err == 0, f"delta_scatter kb={kb}: max |kernel - plain| = {err}")
+        require(not torch.equal(got, base), "delta_scatter wrote nothing")
+        ik, vk = idx[:k], vals[:, :k]
+        # every index is read; only a live slot's 8 values are read and
+        # written (the kernel skips the padding slots' values)
+        moved = 4 * kb + 2 * 4 * 8 * k
+        row = {"shape": f"kb{kb}", "kb": kb, "live": k, "max_abs_err": err,
+               "ms": device_ms(lambda: delta_scatter(got, idx, vals)),
+               "plain_ms": device_ms(
+                   lambda: delta_scatter_reference(want, idx, vals)),
+               "library_ms": device_ms(
+                   lambda: want.__setitem__((slice(None), ik), vk)),
+               "bound_ms": 1e3 * moved / rate, "bound_by": "bytes"}
+        finding(kernel="delta_scatter", **row)
+        rows.append(row)
+    return rows
+
+
+def check_k3(rate: float) -> List[dict]:
+    from tpu_cc_manager_torch.graft_entry import entry
+    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_plan_reference
+
+    fn, args = entry(DEVICE)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = fleet_plan_reference(*args, num_slices=fn.keywords["num_slices"])
+    err = max_abs_err(got, want)
+    require(err == 0, f"fleet_plan: max |kernel - plain| = {err}")
+    n, s = args[0].shape[0], fn.keywords["num_slices"]
+    t_bytes = (3 * 4 * n + 2 * n + 2 * s + 4 * 12) / rate
+    t_ops = n * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
+    row = {"shape": f"n{n}_s{s}", "max_abs_err": err,
+           "ms": device_ms(lambda: fn(*args)),
+           "plain_ms": device_ms(
+               lambda: fleet_plan_reference(*args, num_slices=s)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    finding(kernel="fleet_plan", **row)
+    return [row]
+
+
+# ----------------------------------------------- phase 3: 100k nodes
+
+
+def make_nodes(n: int, seed: int) -> List[dict]:
+    """A seeded NodeList with the bench's mix, as node objects."""
+    from tpu_cc_manager_torch import labels as L
+
+    rng = np.random.default_rng(seed)
+    now = int(time.time())
+    observed = np.full(n, "on", object)
+    observed[rng.random(n) < 0.03] = "off"
+    observed[rng.random(n) < 0.002] = "failed"
+    taint = rng.random(n) < 0.01
+    failing = rng.random(n) < 0.005
+    ages = rng.integers(0, 7200, n)
+    no_evidence = rng.random(n) < 0.01
+    nodes = []
+    for i in range(n):
+        ann = {L.DOCTOR_ANNOTATION: json.dumps(
+            {"ok": False, "fail": ["iommu"], "at": "2026-10-01T00:00:00Z"}
+            if failing[i] else {"ok": True})}
+        if not no_evidence[i]:
+            ann[L.EVIDENCE_ANNOTATION] = json.dumps({"timestamp": time.strftime(
+                "%Y-%m-%dT%H:%M:%SZ", time.gmtime(now - int(ages[i])))})
+        node = {"kind": "Node", "apiVersion": "v1", "metadata": {
+            "name": f"node-{i:07d}",
+            "labels": {
+                L.TPU_ACCELERATOR_LABEL: "tpu-v5p-slice",
+                L.CC_MODE_LABEL: "on",
+                L.CC_MODE_STATE_LABEL: str(observed[i]),
+                L.TPU_SLICE_LABEL: f"slice-{i // SLICE_HOSTS:06d}",
+            },
+            "annotations": ann,
+        }, "spec": {}}
+        if taint[i]:
+            node["spec"]["taints"] = [{"key": L.FLIP_TAINT_KEY,
+                                       "value": L.FLIP_TAINT_VALUE,
+                                       "effect": L.FLIP_TAINT_EFFECT}]
+        nodes.append(node)
+    return nodes
+
+
+def host_expectation(snap: Any, pool_rows: np.ndarray,
+                     pool_target: np.ndarray, now_s: int,
+                     stale_s: int) -> Dict[str, np.ndarray]:
+    """The tick's outputs for the live rows, in numpy on the host:
+    ``plan._row_outputs`` plus bincounts and segment min/max. Shares no
+    code with the kernels or their plain versions."""
+    from tpu_cc_manager_torch.plan import MODE_CODES, N_MODES, _row_outputs
+
+    n = snap.n_nodes
+    vals = {k: v[:n] for k, v in snap.columns.items()}
+    out = _row_outputs(vals, pool_rows, pool_target, now_s, stale_s)
+    out["mode_counts"] = np.bincount(vals["observed"], minlength=N_MODES)
+    pb = pool_target.shape[0]
+    out["pool_nodes"] = np.bincount(pool_rows, minlength=pb)
+    for key in ("converged", "failed", "eligible"):
+        out[f"pool_{key}"] = np.bincount(
+            pool_rows, weights=out[key].astype(np.float64),
+            minlength=pb).astype(np.int64)
+    hist = np.zeros((pb, N_MODES), np.int64)
+    np.add.at(hist, (pool_rows, vals["observed"]), 1)
+    out["pool_skew"] = out["pool_nodes"] - hist.max(axis=1)
+    seg = vals["slice_ids"]
+    s = int(seg.max()) + 1
+    known = vals["desired"] != MODE_CODES["unknown"]
+    at = ((vals["observed"] == vals["desired"]) & known).astype(np.int32)
+    red = {}
+    for key, x, fill, ufunc in (
+            ("d_mn", vals["desired"], 2 ** 31 - 1, np.minimum),
+            ("d_mx", vals["desired"], -(2 ** 31), np.maximum),
+            ("o_mn", vals["observed"], 2 ** 31 - 1, np.minimum),
+            ("o_mx", vals["observed"], -(2 ** 31), np.maximum),
+            ("a_mn", at, 1, np.minimum), ("a_mx", at, 0, np.maximum)):
+        red[key] = np.full(s, fill, np.int64)
+        ufunc.at(red[key], seg, x)
+    agree = red["d_mn"] == red["d_mx"]
+    out["slice_coherent"] = agree & (red["o_mn"] == red["o_mx"])
+    out["slice_half_flipped"] = agree & (red["a_mn"] == 0) & (red["a_mx"] == 1)
+    out["age"] = now_s - vals["ev_ts"]
+    return out
+
+
+def check_fleet_report(report: dict, snap: Any, now_s: int,
+                       stale_s: int) -> None:
+    from tpu_cc_manager_torch.plan import CODE_MODES
+
+    n = snap.n_nodes
+    exp = host_expectation(snap, np.zeros(n, np.int64),
+                           np.zeros(8, np.int32), now_s, stale_s)
+    names = np.array(snap.names)
+    require(report["nodes"] == n, f"report nodes {report['nodes']} != {n}")
+    for key in ("needs_flip", "failed", "flipping"):
+        require(sorted(report[key]) == sorted(names[exp[key]].tolist()),
+                f"report {key} differs from the host evaluation")
+    # a row whose age sits at the threshold may cross it between the
+    # kernel's clock read and this one
+    firm = np.abs(exp["age"] - stale_s) > 120
+    got = set(report["stale_evidence"])
+    want = names[exp["stale_evidence"] & firm].tolist()
+    require(set(want) <= got
+            and not (got - set(names[exp["stale_evidence"]
+                                     | ~firm].tolist())),
+            "report stale_evidence differs from the host evaluation")
+    counts = {CODE_MODES[i]: int(c) for i, c in enumerate(exp["mode_counts"])
+              if c}
+    require(report["mode_counts"] == counts,
+            f"mode_counts {report['mode_counts']} != {counts}")
+    slice_of = {v: k for k, v in snap.slice_index.items()
+                if not k.startswith("__solo__/")}
+    for key, mask in (("incoherent_slices", ~exp["slice_coherent"]),
+                      ("half_flipped_slices", exp["slice_half_flipped"])):
+        want = sorted(slice_of[i] for i in np.nonzero(mask)[0]
+                      if i in slice_of)
+        require(sorted(report[key]) == want,
+                f"report {key} differs from the host evaluation")
+    require(sorted(report["doctor"]["unreported"])
+            == sorted(names[exp["doctor_unreported"]].tolist()),
+            "doctor.unreported differs")
+    require(sorted(d["node"] for d in report["doctor"]["failing"])
+            == sorted(names[exp["doctor_failing"]].tolist()),
+            "doctor.failing differs")
+
+
+def fleet_phase(tmp: str) -> dict:
+    from tpu_cc_manager_torch import plan
+
+    t0 = time.perf_counter()
+    nodes = make_nodes(FLEET_NODES, seed=100)
+    path = os.path.join(tmp, "nodes.json")
+    with open(path, "w") as f:
+        json.dump({"kind": "NodeList", "items": nodes}, f)
+    setup_s = time.perf_counter() - t0
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = plan.main(["--from-file", path])
+    cli_s = time.perf_counter() - t0
+    now_s, stale_s = int(time.time()), int(plan._stale_after_s())
+    require(rc == 0, f"plan.main exited {rc}")
+    report = json.loads(buf.getvalue())
+    enc = plan.FleetEncoding()
+    enc.sync(nodes)
+    snap = enc.snapshot()
+    require(snap.bucket == plan.bucket_nodes(FLEET_NODES),
+            f"bucket {snap.bucket}")
+    check_fleet_report(report, snap, now_s, stale_s)
+
+    pools = [(f"pool-{p}", "on", nodes[p::N_POOLS]) for p in range(N_POOLS)]
+    scratch = plan.PoolScanScratch(device=DEVICE)
+    t0 = time.perf_counter()
+    first = plan.analyze_pools(pools, scratch=scratch)
+    pools_first_s = time.perf_counter() - t0
+    puts = scratch.session.stats["column_puts"]
+    t0 = time.perf_counter()
+    second = plan.analyze_pools(pools, scratch=scratch)
+    pools_second_s = time.perf_counter() - t0
+    require(first == second, "repeat pool scan changed its answer")
+    require(scratch.session.stats["column_puts"] == puts,
+            "repeat pool scan re-uploaded the columns")
+    psnap = scratch.encoding.snapshot()
+    rows = scratch.encoding.row_map()
+    pool_rows = np.zeros(psnap.n_nodes, np.int64)
+    for pid, (_, _, members) in enumerate(pools):
+        for node in members:
+            pool_rows[rows[node["metadata"]["name"]]] = pid
+    pb = plan.bucket_pools(N_POOLS)
+    target = np.full(pb, plan.MODE_CODES["on"], np.int32)
+    exp = host_expectation(psnap, pool_rows, target, now_s, stale_s)
+    for pid, (pname, _, _) in enumerate(pools):
+        want = {"nodes": int(exp["pool_nodes"][pid]),
+                "converged": int(exp["pool_converged"][pid]),
+                "failed": int(exp["pool_failed"][pid]),
+                "divergent": int(exp["pool_nodes"][pid]
+                                 - exp["pool_converged"][pid]),
+                "skew": int(exp["pool_skew"][pid]),
+                "eligible": int(exp["pool_eligible"][pid])}
+        require(first[pname] == want,
+                f"{pname}: {first[pname]} != host {want}")
+    return {"nodes": FLEET_NODES, "setup_s": setup_s, "cli_s": cli_s,
+            "needs_flip": len(report["needs_flip"]),
+            "half_flipped_slices": len(report["half_flipped_slices"]),
+            "pool_scan_first_s": pools_first_s,
+            "pool_scan_second_s": pools_second_s}
+
+
+# ------------------------------------------------- phase 4: 1M nodes
+
+
+def synthetic_encoding(n_nodes: int) -> Any:
+    """A populated FleetEncoding at bench scale without a million
+    ``apply`` calls (the logic of bench.py's ``_synthetic_encoding``):
+    columns, row map and slice bookkeeping stuffed directly, in the
+    layout ``apply`` produces, fingerprints left empty so every delta
+    re-encodes. The session's first tick over it is the rebuild."""
+    from tpu_cc_manager_torch import plan
+
+    enc = plan.FleetEncoding()
+    nb = plan.bucket_nodes(n_nodes)
+    cols = bench_columns(n_nodes, nb, 1, 8, int(time.time()), seed=7)
+    names = [f"n{i:07d}" for i in range(n_nodes)]
+    enc._names = names
+    enc._row = {name: i for i, name in enumerate(names)}
+    enc._cap = nb
+    enc._desired = cols[0].copy()
+    enc._observed = cols[1].copy()
+    sl = np.zeros(nb, np.int32)
+    sl[:n_nodes] = cols[2, :n_nodes]
+    enc._slice = sl
+    n_slices = int(sl[n_nodes - 1]) + 1
+    enc._slice_index = {f"s{j}": j for j in range(n_slices)}
+    enc._slice_key_of = {j: f"s{j}" for j in range(n_slices)}
+    counts = np.bincount(sl[:n_nodes], minlength=n_slices)
+    enc._slice_refs = {j: int(counts[j]) for j in range(n_slices)}
+    enc._slice_rows = {
+        j: set(range(j * SLICE_HOSTS, min((j + 1) * SLICE_HOSTS, n_nodes)))
+        for j in range(n_slices)
+    }
+    enc._next_slice = n_slices
+    enc._taint = cols[4].copy()
+    enc._doctor = cols[5].copy()
+    enc._ev_ts = cols[6].copy()
+    return enc
+
+
+def session_phase() -> Tuple[dict, Any]:
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    enc = synthetic_encoding(SESSION_NODES)
+    setup_s = time.perf_counter() - t0
+    sess = plan.TickSession(full_every=0, device=DEVICE)
+    t0 = time.perf_counter()
+    res = sess.tick(enc)
+    rebuild_s = time.perf_counter() - t0
+    require(res.kind == "rebuild", f"first tick was {res.kind}")
+    rng = np.random.default_rng(11)
+    k = int(SESSION_NODES * DELTA_RATE)
+    scatters = LAUNCHES["delta_scatter"]
+    incr = []
+    for r in range(INCR_TICKS):
+        state = "off" if r % 2 == 0 else "on"
+        for i in rng.choice(SESSION_NODES, size=k, replace=False):
+            enc.apply({"metadata": {"name": enc._names[i], "labels": {
+                L.CC_MODE_LABEL: "on", L.CC_MODE_STATE_LABEL: state,
+                L.TPU_SLICE_LABEL: f"s{i // SLICE_HOSTS}"}}})
+        t0 = time.perf_counter()
+        res = sess.tick(enc)
+        incr.append(time.perf_counter() - t0)
+        require(res.kind == "incremental", f"tick {r} was {res.kind}")
+    require(LAUNCHES["delta_scatter"] >= scatters + INCR_TICKS,
+            "incremental ticks did not launch delta_scatter")
+    t0 = time.perf_counter()
+    res = sess.tick(enc, force_full=True)  # raises IncrementalDriftError
+    full_s = time.perf_counter() - t0
+    require(res.kind == "full", f"forced tick was {res.kind}")
+    total = int(res.outputs["mode_counts"].sum())
+    require(total == SESSION_NODES, f"mode_counts sums to {total}")
+    require(sess.stats["column_puts"] == 8, f"stats {sess.stats}")
+    return {"nodes": SESSION_NODES, "bucket": sess.node_bucket,
+            "setup_s": setup_s, "rebuild_tick_s": rebuild_s,
+            "incremental_tick_s": incr,
+            "incremental_tick_min_s": min(incr),
+            "forced_full_tick_s": full_s, "delta_rows": k,
+            "stats": dict(sess.stats)}, enc
+
+
+def split_full_tick(enc: Any, label: str) -> dict:
+    """The legacy full tick (snapshot, upload, K1, fetch, report) with
+    each step timed on the host clock, the second of two runs."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_block
+
+    pb = plan.BUCKET_MIN_POOLS
+    target = torch.zeros(pb, dtype=torch.int32, device=DEVICE)
+    for _ in range(2):
+        t = {}
+        t0 = time.perf_counter()
+        snap = enc.snapshot()
+        t["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        block = plan.columns_to_block(snap.columns, DEVICE)
+        torch.cuda.synchronize()
+        t["h2d_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = fleet_tick_block(block, target, int(time.time()), 3600,
+                               num_pools=pb, num_slots=snap.bucket)
+        torch.cuda.synchronize()
+        t["kernel_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = plan._to_host(out)
+        t["d2h_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan._format_report(snap.n_nodes, snap.names, snap.slice_index,
+                            snap.doctor_details, host)
+        t["report_s"] = time.perf_counter() - t0
+    t["total_s"] = sum(t.values())
+    finding(phase="legacy_full_tick_split", fleet=label, **t)
+    return t
+
+
+def entry_phase() -> dict:
+    from tpu_cc_manager_torch.graft_entry import entry
+
+    fn, args = entry(DEVICE)
+    out = fn(*args)
+    require(int(out["mode_counts"].sum()) == 256,
+            "entry(): mode_counts does not sum to 256")
+    return {k: tuple(v.shape) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------- main
+
+
+KERNELS = {
+    "fleet_tick": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
+                   "tpu_cc_manager/plan.py:790"),
+    "delta_scatter": ("tpu_cc_manager_torch/csrc/delta_scatter.cu",
+                      "tpu_cc_manager/plan.py:1075"),
+    "fleet_plan": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
+                   "tpu_cc_manager/plan.py:689"),
+}
+
+
+def run() -> None:
+    from tpu_cc_manager_torch.kernels import LAUNCHES, _build, reset_launches
+
+    smi = nvidia_smi()
+    finding(phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
+            device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    t0 = time.perf_counter()
+    lib = _build.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for line in str(_build.BUILD_STATS["log"]).splitlines()
+             if "registers" in line or "spill" in line or "Compiling" in line]
+    finding(phase="build", seconds=build_s, hits=_build.BUILD_STATS["hits"],
+            misses=_build.BUILD_STATS["misses"], ptxas=ptxas)
+    rate = lib.tcc_memory_bytes_per_s(DEVICE.index or 0)
+    require(rate > 0, "could not read the card's memory rate")
+    finding(phase="memory_rate", bytes_per_s=rate)
+
+    measured = {"fleet_tick": check_k1(rate), "delta_scatter": check_k2(rate),
+                "fleet_plan": check_k3(rate)}
+
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        fleet = fleet_phase(tmp)
+    session, enc = session_phase()
+    shapes = entry_phase()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    finding(phase="main_path", launches=launches, fleet=fleet,
+            session=session, entry_shapes=shapes)
+    for name, count in launches.items():
+        require(count > 0, f"the main path never launched {name}")
+
+    split_full_tick(synthetic_encoding(FLEET_NODES), "100k")
+    split_full_tick(enc, "1m")
+
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        # the largest shape the main path gives each kernel
+        main = max(measured[name], key=lambda r: r.get("rows", r.get("kb", 0)))
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
+            "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
+            "shape": main["shape"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main.get("library_ms"),
+            "shapes": measured[name],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        run()
+    except Exception as e:  # every phase's failure ends the run here
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    # the run uses cuda:0 only
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": 1}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,170 @@
+"""The PyTorch port stands alone and never hides its device.
+
+- No module of ``tpu_cc_manager_torch``, and not ``chip_smoke.py``,
+  imports ``jax``, the JAX package or ``__graft_entry__`` — checked in a
+  fresh interpreter (this one has JAX loaded by conftest) and in the
+  sources, function-level imports included.
+- With no CUDA device and no request for the CPU, the entry points
+  raise instead of planning on the CPU.
+- The CLI refuses the live API path, which arrives with a later slice.
+- ``chip_smoke.py`` exits non-zero, printing no result, without a card
+  or without the repository around it.
+"""
+
+import ast
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_cc_manager_torch import plan as tplan  # noqa: E402
+from tpu_cc_manager_torch.graft_entry import entry  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "tpu_cc_manager_torch"
+FORBIDDEN = ("jax", "jaxlib", "tpu_cc_manager", "__graft_entry__")
+
+# One fresh interpreter, with no card visible, makes every check that
+# needs one: the import check, the CLI without a card and chip_smoke.py
+# without a card.
+_CHILD = r"""
+import contextlib, importlib, io, json, pkgutil, runpy, sys
+import tpu_cc_manager_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_cc_manager",
+                                    "__graft_entry__"))
+cli_out, cli_err = io.StringIO(), ""
+sys.argv = ["tpu_cc_manager_torch.plan", "--from-file", sys.argv[1]]
+try:
+    with contextlib.redirect_stdout(cli_out):
+        runpy.run_module("tpu_cc_manager_torch.plan", run_name="__main__")
+except BaseException as e:
+    cli_err = f"{type(e).__name__}: {e}"
+smoke_out = io.StringIO()
+with contextlib.redirect_stdout(smoke_out):
+    smoke_rc = chip_smoke.main()
+print(json.dumps({"modules": mods, "bad": bad, "cli_out": cli_out.getvalue(),
+                  "cli_err": cli_err, "smoke_rc": smoke_rc,
+                  "smoke_out": smoke_out.getvalue()}))
+"""
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != tplan.DEVICE_ENV}
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(extra)
+    return env
+
+
+@pytest.fixture(scope="module")
+def child(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "nodes.json"
+    path.write_text(json.dumps({"items": []}))
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(path)],
+                          cwd=ROOT, env=_env(CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
+    assert child["bad"] == []
+    for mod in ("plan", "graft_entry", "labels", "modes", "watch",
+                "kernels._build", "kernels.fleet_tick",
+                "kernels.delta_scatter"):
+        assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+     if "_build" not in p.relative_to(PKG).parts]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_the_reference(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.delenv(tplan.DEVICE_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_and_without_a_cpu_request(
+        monkeypatch):
+    _no_cuda(monkeypatch)
+    nodes = [{"metadata": {"name": "a", "labels": {}}}]
+    with pytest.raises(RuntimeError, match=tplan.DEVICE_ENV):
+        tplan.analyze_fleet(nodes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.analyze_fleet([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.analyze_pools([("p", "on", nodes)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.analyze_encoding(tplan.FleetEncoding())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.TickSession()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.PoolScanScratch()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tplan.warmup(max_nodes=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    # asking for the CPU is the only way onto it
+    assert tplan.analyze_fleet(nodes, device="cpu")["nodes"] == 1
+
+
+def test_cli_without_cuda_fails_instead_of_planning_on_cpu(child):
+    assert child["cli_err"].startswith("RuntimeError")
+    assert tplan.DEVICE_ENV in child["cli_err"]
+    assert child["cli_out"] == ""
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kubeconfig", "/nonexistent"],
+    ["--kubeconfig", "/nonexistent", "--from-file", "NODES"],
+    [],
+])
+def test_kubeconfig_exits_nonzero_naming_the_later_slice(argv, tmp_path,
+                                                         capsys):
+    nodes = tmp_path / "nodes.json"
+    nodes.write_text(json.dumps({"items": []}))
+    argv = [str(nodes) if a == "NODES" else a for a in argv]
+    assert tplan.main(argv) == 2
+    captured = capsys.readouterr()
+    assert "k8s client slice" in captured.err and "--from-file" in captured.err
+    assert captured.out == ""
+
+
+def test_chip_smoke_fails_without_a_card(child):
+    assert child["smoke_rc"] != 0
+    assert '"ok": true' not in child["smoke_out"]
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = _env()
+    env.pop("PYTHONPATH")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
