@@ -20,9 +20,23 @@ exits non-zero without them, and whenever any phase fails.
    encoding, takes 4 incremental ticks at 1 % deltas and one forced full
    (verifying) tick.
 5. ``graft_entry.entry()``'s function on its example fleet.
+6. K5 ``probe_add_one`` against its plain version on ``cuda:0``: the
+   probe's own 1.0 and a seeded vector must come back bit-equal; the
+   kernel is timed beside its plain version and the one PyTorch call
+   ``x + 1.0``, and ``CudaBackend.probe_device(0)``'s round trip on the
+   host clock.
+7. The flip cycle on the card: ``python -m tpu_cc_manager_torch
+   probe-devices`` in a subprocess, then ``ModeEngine`` over
+   ``CudaBackend`` flips on → off → devtools, each verified through
+   ``get_modes()`` and ``python -m tpu_cc_manager_torch get-cc-mode``,
+   with ``runtime_gen`` advancing once and K5 launching in ``wait_ready``
+   per flip; then phase 4's session ticks to the same outputs as before
+   the resets. The mode store lives in a temporary directory, and
+   ``/dev/nvidia*`` keeps its permission bits.
 
 Launch counts are set to 0 just before phase 3 and read just after phase
-5: each kernel must have been launched there. Lines before the last are
+5, and set to 0 again just before phase 7 and read just after it: each
+kernel must have been launched on its path. Lines before the last are
 findings (one JSON object each), the ``{"kernels": [...]}`` line and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -524,7 +538,7 @@ def synthetic_encoding(n_nodes: int) -> Any:
     return enc
 
 
-def session_phase() -> Tuple[dict, Any]:
+def session_phase() -> Tuple[dict, Any, Any]:
     from tpu_cc_manager_torch import labels as L
     from tpu_cc_manager_torch import plan
     from tpu_cc_manager_torch.kernels import LAUNCHES
@@ -565,7 +579,7 @@ def session_phase() -> Tuple[dict, Any]:
             "incremental_tick_s": incr,
             "incremental_tick_min_s": min(incr),
             "forced_full_tick_s": full_s, "delta_rows": k,
-            "stats": dict(sess.stats)}, enc
+            "stats": dict(sess.stats)}, enc, sess
 
 
 def split_full_tick(enc: Any, label: str) -> dict:
@@ -612,9 +626,208 @@ def entry_phase() -> dict:
     return {k: tuple(v.shape) for k, v in out.items()}
 
 
+# ------------------------------------------------------ phase 6: K5
+
+
+def probe_inputs(n: int, seed: int) -> np.ndarray:
+    """Seeded float32 values over many magnitudes, and the values where
+    rounding and IEEE rules bite (the probe's own 1.0 first)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n) * 10.0 ** rng.integers(-40, 38, n)
+    special = [1.0, 0.0, -0.0, -1.0, 2.0 ** -24, -1.0 + 2.0 ** -24, 1e-45,
+               1.17e-38, 3.4e38, -3.4e38, 2.0 ** 24 + 2, np.inf, -np.inf,
+               np.nan]
+    return np.concatenate([np.array(special), x]).astype(np.float32)
+
+
+def float_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over finite values; raises unless both have
+    NaN at the same places and every other value has the same bits."""
+    require(got.dtype == want.dtype == torch.float32
+            and got.shape == want.shape,
+            f"{got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), "NaN positions differ")
+    require(torch.equal(got[~nan].view(torch.int32),
+                        want[~nan].view(torch.int32)), "bits differ")
+    fin = torch.isfinite(want)
+    diff = (got[fin].double() - want[fin].double()).abs()
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_k5(rate: float, tmp: str) -> List[dict]:
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.kernels.probe import (
+        probe_add_one, probe_add_one_reference)
+
+    one = torch.tensor(1.0, dtype=torch.float32, device=DEVICE)
+    got, want = probe_add_one(one), probe_add_one_reference(one)
+    torch.cuda.synchronize()
+    require(float(got) == 2.0 and float(want) == 2.0,
+            f"probe_add_one(1.0) = {float(got)}, plain {float(want)}")
+    err = float_err(got, want)
+    vec = torch.from_numpy(probe_inputs(65_536, 13)).to(DEVICE)
+    vgot = probe_add_one(vec)
+    torch.cuda.synchronize()
+    verr = float_err(vgot, probe_add_one_reference(vec))
+    require(verr == 0.0, f"probe_add_one vector: max |kernel - plain| = {verr}")
+    finding(kernel="probe_add_one", shape="n65536_seeded", max_abs_err=verr)
+
+    be = CudaBackend(state_dir=os.path.join(tmp, "probe-state"))
+    for _ in range(WARM):
+        be.probe_device(0)
+    trips = [be.probe_device(0) for _ in range(REPS)]
+    # 4 bytes read and 4 written; one add against the scalar float32 rate.
+    # The bytes' time is picoseconds: a launch, microseconds, is the
+    # real floor of a one-element kernel.
+    t_bytes, t_ops = 8 / rate, 1 / PEAK_SCALAR_OPS
+    row = {"shape": "n1", "max_abs_err": max(err, verr),
+           "ms": device_ms(lambda: probe_add_one(one)),
+           "plain_ms": device_ms(lambda: probe_add_one_reference(one)),
+           "library_ms": device_ms(lambda: torch.add(one, 1.0)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "floor": "launch: the 8 bytes take picoseconds, a launch "
+                    "microseconds",
+           "probe_round_trip_s": statistics.median(trips),
+           "probe_round_trip_min_s": min(trips),
+           "probe_round_trip_max_s": max(trips)}
+    finding(kernel="probe_add_one", **row)
+    return [row]
+
+
+# ------------------------------------------- phase 7: the flip cycle
+
+FLIP_MODES = ("on", "off", "devtools")
+FLIP_PHASES = ("enumerate", "plan", "stage", "reset", "wait_ready", "verify")
+
+
+def port_cli(args: List[str], state_dir: str) -> dict:
+    """``python -m tpu_cc_manager_torch <args>`` in a subprocess with the
+    mode store in ``state_dir``; returns its JSON output."""
+    env = dict(os.environ, TPU_CC_STATE_DIR=state_dir,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "tpu_cc_manager_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    require(proc.returncode == 0,
+            f"{' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def dev_nodes() -> Dict[str, int]:
+    """Permission bits of every /dev/nvidia* node."""
+    out = {}
+    for name in sorted(os.listdir("/dev")):
+        if name.startswith("nvidia"):
+            out[name] = os.stat(os.path.join("/dev", name)).st_mode
+    return out
+
+
+def flip_phase(tmp: str, sess: Any, enc: Any) -> dict:
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.engine import ModeEngine
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_block
+    from tpu_cc_manager_torch.trace import Tracer
+
+    state = os.path.join(tmp, "state")
+    nodes_before = dev_nodes()
+    cwd_before = set(os.listdir(ROOT))
+    name = torch.cuda.get_device_name(0)
+
+    # the resident session block, evaluated at a fixed clock before the
+    # resets; the same evaluation after them must agree on every output
+    now, stale = int(time.time()), 3600
+    target = torch.zeros(sess.pool_bucket, dtype=torch.int32, device=DEVICE)
+
+    def resident_outputs() -> Dict[str, torch.Tensor]:
+        out = fleet_tick_block(sess._cols, target, now, stale,
+                               num_pools=sess.pool_bucket,
+                               num_slots=sess.node_bucket)
+        return {k: v.clone() for k, v in out.items()}
+
+    before = resident_outputs()
+    tick_before = sess.tick(enc, force_full=True)
+    snap_before = {k: np.array(v) for k, v in tick_before.outputs.items()}
+
+    t0 = time.perf_counter()
+    inv = port_cli(["probe-devices"], state)
+    probe_cli_s = time.perf_counter() - t0
+    require(inv["backend"] == "cuda" and inv["error"] is None,
+            f"probe-devices: {inv}")
+    require(len(inv["devices"]) == torch.cuda.device_count() >= 1,
+            f"probe-devices listed {len(inv['devices'])} devices")
+    dev0 = inv["devices"][0]
+    require(dev0["device_kind"] == name and dev0["cc_capable"] is True,
+            f"probe-devices device 0: {dev0}")
+    require(dev0["path"].startswith("cuda:")
+            and len(dev0["path"].split(":")) == 4
+            and dev0["path"].endswith(".0"),
+            f"probe-devices path {dev0['path']!r} is not a PCI address")
+
+    backend = CudaBackend(state_dir=state)
+    durations: Dict[str, List[float]] = {}
+    tracer = Tracer()
+    tracer.add_sink(lambda s: durations.setdefault(s.name, []).append(s.dur_s))
+    states: List[str] = []
+    engine = ModeEngine(set_state_label=states.append, evict_components=False,
+                        backend=backend, tracer=tracer)
+    paths = [c.path for c in backend.find_tpus()[0]]
+    require(paths == [d["path"] for d in inv["devices"]],
+            f"backend paths {paths} differ from the CLI's")
+    flips = []
+    for mode in FLIP_MODES:
+        durations.clear()
+        gen, probes = backend.runtime_gen, LAUNCHES["probe_add_one"]
+        # what the restart's empty_cache has to hand back to the driver
+        reserved = torch.cuda.memory_reserved(DEVICE)
+        t0 = time.perf_counter()
+        ok = engine.set_mode(mode)
+        flip_s = time.perf_counter() - t0
+        require(ok, f"set_mode({mode!r}) failed")
+        require(backend.runtime_gen == gen + 1,
+                f"runtime_gen {gen} -> {backend.runtime_gen} on {mode}")
+        require(LAUNCHES["probe_add_one"] >= probes + len(paths),
+                f"wait_ready did not launch probe_add_one on {mode}")
+        want = {p: {"cc": mode, "ici": "off"} for p in paths}
+        require(engine.get_modes() == want,
+                f"get_modes after {mode}: {engine.get_modes()}")
+        got_cli = port_cli(["get-cc-mode"], state)
+        require(got_cli == want, f"get-cc-mode after {mode}: {got_cli}")
+        flip = {"mode": mode, "flip_s": flip_s,
+                "probe_launches": LAUNCHES["probe_add_one"] - probes,
+                "reserved_bytes_before": reserved,
+                "reserved_bytes_after": torch.cuda.memory_reserved(DEVICE)}
+        for ph in FLIP_PHASES:
+            flip[f"{ph}_s"] = sum(durations.get(ph, []))
+        finding(phase="flip", **flip)
+        flips.append(flip)
+    require(states == list(FLIP_MODES), f"state labels {states}")
+
+    after = resident_outputs()
+    err = max_abs_err(after, before)
+    require(err == 0, f"the resident session block changed: {err}")
+    tick_after = sess.tick(enc, force_full=True)  # raises on drift
+    for key, want_v in snap_before.items():
+        if key == "stale_evidence":  # moves with the clock at full ticks
+            continue
+        require(np.array_equal(np.asarray(tick_after.outputs[key]), want_v),
+                f"session output {key} changed across the resets")
+    require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
+    require(set(os.listdir(ROOT)) == cwd_before,
+            "the flip wrote into the repository root")
+    return {"devices": len(paths), "paths": paths,
+            "probe_devices_cli_s": probe_cli_s, "flips": flips,
+            "runtime_gen": backend.runtime_gen,
+            "session_outputs_equal": True}
+
+
 # ---------------------------------------------------------------- main
 
 
+#: the kernels of phases 3-5; probe_add_one's path is phase 7
+PLANNER_KERNELS = ("fleet_tick", "delta_scatter", "fleet_plan")
 KERNELS = {
     "fleet_tick": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
                    "tpu_cc_manager/plan.py:790"),
@@ -622,6 +835,8 @@ KERNELS = {
                       "tpu_cc_manager/plan.py:1075"),
     "fleet_plan": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
                    "tpu_cc_manager/plan.py:689"),
+    "probe_add_one": ("tpu_cc_manager_torch/csrc/probe.cu",
+                      "tpu_cc_manager/device/jaxdev.py:260"),
 }
 
 
@@ -648,22 +863,34 @@ def run() -> None:
     reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         fleet = fleet_phase(tmp)
-    session, enc = session_phase()
+    session, enc, sess = session_phase()
     shapes = entry_phase()
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     finding(phase="main_path", launches=launches, fleet=fleet,
             session=session, entry_shapes=shapes)
-    for name, count in launches.items():
-        require(count > 0, f"the main path never launched {name}")
+    for name in PLANNER_KERNELS:
+        require(launches[name] > 0, f"the main path never launched {name}")
 
     split_full_tick(synthetic_encoding(FLEET_NODES), "100k")
     split_full_tick(enc, "1m")
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        measured["probe_add_one"] = check_k5(rate, tmp)
+        reset_launches()
+        flip = flip_phase(tmp, sess, enc)
+        torch.cuda.synchronize()
+        flip_launches = dict(LAUNCHES)
+    finding(phase="flip_path", launches=flip_launches, **flip)
+    require(flip_launches["probe_add_one"] > 0,
+            "the flip path never launched probe_add_one")
+    launches["probe_add_one"] = flip_launches["probe_add_one"]
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         # the largest shape the main path gives each kernel
-        main = max(measured[name], key=lambda r: r.get("rows", r.get("kb", 0)))
+        main = max(measured[name],
+                   key=lambda r: r.get("rows", r.get("kb", 0)))
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -1,0 +1,152 @@
+"""The port's copies of the JAX-free modules stay equal to the reference.
+
+Each module below is the reference's source with only the package name
+rewritten in its import statements (``tpu_cc_manager`` →
+``tpu_cc_manager_torch``). Any other difference is a named exception:
+a block of the reference's text and the block the port has in its place.
+Each exception must occur exactly once; after the rewrite and the
+exceptions the two sources must be equal, byte for byte.
+"""
+
+import pathlib
+import re
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+_IMPORT = re.compile(r"^(\s*)(from|import)\s+tpu_cc_manager\b")
+
+COPIES = (
+    "device/base.py", "device/statefile.py", "device/native.py",
+    "device/gate.py", "device/holders.py", "device/fake.py",
+    "device/__init__.py", "trace.py", "flightrec.py", "k8s/client.py",
+    "k8s/aio.py", "k8s/aio_bridge.py", "flipexec.py", "attest.py",
+    "identity.py", "engine.py", "config.py", "modes.py",
+)
+
+#: module -> [(name, reference block, port block)]
+EXCEPTIONS = {
+    "device/base.py": [
+        ("registry: cuda is the default and replaces jax; sysfs waits", '''\
+    - ``sysfs`` (default) — host accel sysfs tree scan (device.tpu);
+    - ``jax``             — live PJRT/libtpu enumeration (device.jaxdev),
+      the path that touches the real chip;
+    - ``fake``            — in-memory fake (device.fake), for kind-style
+      dry runs where the DaemonSet has no device plumbing at all.
+    """
+    name = os.environ.get("TPU_CC_DEVICE_BACKEND", "sysfs").strip().lower()
+    if name == "jax":
+        from tpu_cc_manager_torch.device.jaxdev import JaxTpuBackend
+
+        return JaxTpuBackend()
+    if name == "fake":
+        from tpu_cc_manager_torch.device.fake import fake_backend
+
+        return fake_backend()
+    if name != "sysfs":
+        raise DeviceError(
+            f"unknown TPU_CC_DEVICE_BACKEND {name!r}: "
+            "expected sysfs | jax | fake"
+        )
+    from tpu_cc_manager_torch.device.tpu import SysfsTpuBackend
+
+    return SysfsTpuBackend()
+''', '''\
+    - ``cuda`` (default) — live CUDA enumeration through torch
+      (device.cudadev), the path that touches the real card;
+    - ``fake``           — in-memory fake (device.fake), for kind-style
+      dry runs where the DaemonSet has no device plumbing at all.
+
+    ``sysfs`` (the reference's accel sysfs scan) is not ported yet and
+    raises a DeviceError naming the ROADMAP item that ports it.
+    """
+    name = os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda").strip().lower()
+    if name == "cuda":
+        from tpu_cc_manager_torch.device.cudadev import CudaBackend
+
+        return CudaBackend()
+    if name == "fake":
+        from tpu_cc_manager_torch.device.fake import fake_backend
+
+        return fake_backend()
+    if name == "sysfs":
+        raise DeviceError(
+            "TPU_CC_DEVICE_BACKEND=sysfs is not ported yet "
+            "(ROADMAP Queue 1 item 7, the sysfs backend); use cuda | fake"
+        )
+    raise DeviceError(
+        f"unknown TPU_CC_DEVICE_BACKEND {name!r}: expected cuda | fake"
+    )
+'''),
+        ("registry: get_backend's default", '''\
+    (sysfs unless overridden)."""''', '''\
+    (cuda unless overridden)."""'''),
+    ],
+    "config.py": [
+        ("probe-devices --backend takes cuda | fake, default cuda", '''\
+             "Default backend: jax — the live TPU runtime, i.e. hardware "
+             "truth; pass --backend sysfs to inspect the surface a "
+             "sysfs-backend agent actually manages.",
+    )
+    probe.add_argument(
+        "--backend",
+        choices=("jax", "sysfs", "fake"),
+        default=os.environ.get("TPU_CC_DEVICE_BACKEND", "jax"),
+        help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
+             "default jax)",''', '''\
+             "Default backend: cuda — the live CUDA devices, i.e. hardware "
+             "truth; pass --backend fake to inspect the in-memory fake.",
+    )
+    probe.add_argument(
+        "--backend",
+        choices=("cuda", "fake"),
+        default=os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda"),
+        help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
+             "default cuda)",'''),
+    ],
+}
+
+
+def rewrite_imports(text: str) -> str:
+    """The reference source as the port imports it: ``tpu_cc_manager``
+    becomes ``tpu_cc_manager_torch`` in import statements only."""
+    out = []
+    for line in text.splitlines(keepends=True):
+        m = _IMPORT.match(line)
+        if m:
+            line = line[:m.end()] + "_torch" + line[m.end():]
+        out.append(line)
+    return "".join(out)
+
+
+@pytest.mark.parametrize("module", COPIES)
+def test_copy_equals_its_reference(module):
+    want = rewrite_imports((ROOT / "tpu_cc_manager" / module).read_text())
+    for name, ref_block, port_block in EXCEPTIONS.get(module, ()):
+        assert want.count(ref_block) == 1, (
+            f"{module}: exception {name!r} no longer matches the reference")
+        want = want.replace(ref_block, port_block)
+    got = (ROOT / "tpu_cc_manager_torch" / module).read_text()
+    if got != want:
+        import difflib
+
+        diff = "".join(difflib.unified_diff(
+            want.splitlines(keepends=True), got.splitlines(keepends=True),
+            f"reference/{module} (rewritten)", f"port/{module}", n=1))
+        pytest.fail(f"{module} drifted from its reference:\n{diff[:4000]}")
+
+
+def test_the_rewrite_touches_import_statements_only():
+    src = ('"""see tpu_cc_manager.engine"""\n'
+           "from tpu_cc_manager import device as devlayer\n"
+           "    from tpu_cc_manager.device.base import DeviceError\n"
+           "import tpu_cc_manager.trace\n"
+           "x = 'python -m tpu_cc_manager'\n"
+           "from tpu_cc_manager_torch import plan\n")
+    assert rewrite_imports(src) == (
+        '"""see tpu_cc_manager.engine"""\n'
+        "from tpu_cc_manager_torch import device as devlayer\n"
+        "    from tpu_cc_manager_torch.device.base import DeviceError\n"
+        "import tpu_cc_manager_torch.trace\n"
+        "x = 'python -m tpu_cc_manager'\n"
+        "from tpu_cc_manager_torch import plan\n")

@@ -82,8 +82,83 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
     assert child["bad"] == []
     for mod in ("plan", "graft_entry", "labels", "modes", "watch",
                 "kernels._build", "kernels.fleet_tick",
-                "kernels.delta_scatter"):
+                "kernels.delta_scatter", "kernels.probe", "engine",
+                "flipexec", "trace", "flightrec", "attest", "identity",
+                "config", "__main__", "device.base", "device.cudadev",
+                "device.statefile", "device.native", "device.gate",
+                "device.holders", "device.fake", "k8s.client", "k8s.aio",
+                "k8s.aio_bridge"):
         assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
+
+
+#: modules of the port that an import names but that arrive with a later
+#: slice, each with the slice that brings it; reached only on paths this
+#: slice never takes (attest.py imports evidence lazily)
+PENDING = {"tpu_cc_manager_torch.evidence": "slice 3 (ROADMAP Queue 1 item 3)"}
+
+
+def _module_file(name):
+    """The port's file for module ``name``, or None."""
+    parts = name.split(".")[1:]
+    if not parts:
+        return PKG / "__init__.py"
+    rel = pathlib.Path(*parts)
+    for cand in (PKG / rel.with_suffix(".py"), PKG / rel / "__init__.py"):
+        if cand.is_file():
+            return cand
+    return None
+
+
+def _top_level_names(path):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [
+                node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return names
+
+
+def _port_imports():
+    """(source, module) for every import of a port module, lazy ones
+    included; ``from pkg import name`` names a module when no top-level
+    name of ``pkg`` is called so."""
+    sources = [p for p in PKG.rglob("*.py")
+               if "_build" not in p.relative_to(PKG).parts]
+    sources.append(ROOT / "chip_smoke.py")
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+                base = _module_file(node.module)
+                if base is not None:
+                    defined = _top_level_names(base)
+                    mods += [f"{node.module}.{a.name}" for a in node.names
+                             if a.name not in defined]
+            else:
+                continue
+            for mod in mods:
+                if mod.split(".")[0] == "tpu_cc_manager_torch":
+                    yield str(path.relative_to(ROOT)), mod
+
+
+def test_every_port_module_an_import_names_exists_or_waits_for_its_slice():
+    seen = set()
+    for source, mod in _port_imports():
+        seen.add(mod)
+        assert _module_file(mod) is not None or mod in PENDING, (
+            f"{source} imports {mod}, which the port does not have")
+    # the list stays short and true: each pending module is still named
+    assert set(PENDING) <= seen, sorted(set(PENDING) - seen)
+    assert not [m for m in PENDING if _module_file(m) is not None]
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -1,4 +1,4 @@
-"""Build and load the planner's CUDA kernels.
+"""Build and load the port's CUDA kernels.
 
 ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. Each source
@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Union
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("runtime.cu", "fleet_tick.cu", "delta_scatter.cu")
+SOURCES = ("runtime.cu", "fleet_tick.cu", "delta_scatter.cu", "probe.cu")
 LIB_NAME = "libtpu_cc_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -57,7 +57,7 @@ def nvcc_path() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-        "/usr/local/cuda/bin): the planner's CUDA kernels cannot be built")
+        "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
 
 
 def source_digest() -> str:
@@ -119,6 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tcc_fleet_tick.restype = i
     lib.tcc_delta_scatter.argtypes = [p, i, p, p, i, p]
     lib.tcc_delta_scatter.restype = i
+    lib.tcc_probe_add_one.argtypes = [p, p, ctypes.c_int64, p]
+    lib.tcc_probe_add_one.restype = i
     lib.tcc_error_string.argtypes = [i]
     lib.tcc_error_string.restype = ctypes.c_char_p
     lib.tcc_memory_bytes_per_s.argtypes = [i]
