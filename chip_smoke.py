@@ -33,13 +33,38 @@ exits non-zero without them, and whenever any phase fails.
    per flip; then phase 4's session ticks to the same outputs as before
    the resets. The mode store lives in a temporary directory, and
    ``/dev/nvidia*`` keeps its permission bits.
+8. The mesh (``TPU_CC_PLANNER_MESH``): (a) K1's partial form and K4
+   ``mesh_combine`` against their plain versions at S = 8 shards,
+   1,048,576 slots, pb = 8, on partials from a seeded K1-partial pass
+   with hostile slice ids and slots no shard touches, bit-equal, timed
+   beside K4's byte bound and the library's ``sum``/``amin``/``amax``;
+   K2 on each of the 8 shard blocks (row offset, shard width) at 16,384
+   delta slots with every shard's edge rows and padding, and K3 at the
+   dry run's per-shard shape, each bit-equal to its plain version;
+   (b) phase 4's 1M-row session at 1 % deltas on 8 shards on ``cuda:0``
+   (rebuild, three incremental ticks, a forced full tick), every output
+   array equal to the 1-shard session's, with the device time of the
+   shards' partials, the peer copies and K4, from events that
+   ``plan._mesh_tick`` records at its own stage boundaries, and the peak
+   memory of both;
+   (c) ``graft_entry.dryrun_multichip(8)``; (d) ``FleetController.
+   scan_once`` over a ``FakeKube`` of phase 3's 100,000 nodes at 8 shards
+   and at 1, equal reports, and ``python -m tpu_cc_manager_torch
+   fleet-controller --once`` against a ``FakeApiServer`` of 1,000 nodes;
+   (e) with two cards or more, (b) again at 2 shards per card over every
+   card.
 
-Launch counts are set to 0 just before phase 3 and read just after phase
-5, and set to 0 again just before phase 7 and read just after it: each
-kernel must have been launched on its path. Lines before the last are
-findings (one JSON object each), the ``{"kernels": [...]}`` line and the
-card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
+visible card (it fails with one). Phases 1-7 run on one shard
+(``TPU_CC_PLANNER_MESH=1``). Launch counts
+are set to 0 just before phase 3 and read just after phase 5, set to 0
+again just before phase 7 and read just after it, and again just before
+phase 8's (b) and read just after its (d): each kernel must have been
+launched on its path. Lines before the last are findings (one JSON
+object each), the ``{"kernels": [...]}`` line and the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``, whose
+``count`` is 1 (the cards this run drives) and, under ``--multi-card``,
+the number of visible cards.
 """
 
 from __future__ import annotations
@@ -53,7 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +101,12 @@ SPIN_CYCLES = 4_000_000
 #: csrc/fleet_tick.cu (histogram selects included)
 K1_OPS_PER_ROW = 64
 #: the H100 SXM data sheet's rate outside the tensor cores (67 T/s of
-#: float32); K1 and K3 are scalar integer work there
+#: float32); K1, K3 and K4 are scalar integer work there
 PEAK_SCALAR_OPS = 67e12
+#: phase 8: the mesh's shard count, and the fleet of the --once CLI run
+MESH_SHARDS = 8
+CLI_NODES = 1_000
+MESH_INCR_TICKS = 3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -502,17 +531,19 @@ def fleet_phase(tmp: str) -> dict:
 # ------------------------------------------------- phase 4: 1M nodes
 
 
-def synthetic_encoding(n_nodes: int) -> Any:
+def synthetic_encoding(n_nodes: int, now: Optional[int] = None) -> Any:
     """A populated FleetEncoding at bench scale without a million
     ``apply`` calls (the logic of bench.py's ``_synthetic_encoding``):
     columns, row map and slice bookkeeping stuffed directly, in the
     layout ``apply`` produces, fingerprints left empty so every delta
-    re-encodes. The session's first tick over it is the rebuild."""
+    re-encodes. Evidence ages count back from ``now`` (the clock when
+    None). The session's first tick over it is the rebuild."""
     from tpu_cc_manager_torch import plan
 
     enc = plan.FleetEncoding()
     nb = plan.bucket_nodes(n_nodes)
-    cols = bench_columns(n_nodes, nb, 1, 8, int(time.time()), seed=7)
+    cols = bench_columns(n_nodes, nb, 1, 8,
+                         int(time.time()) if now is None else now, seed=7)
     names = [f"n{i:07d}" for i in range(n_nodes)]
     enc._names = names
     enc._row = {name: i for i, name in enumerate(names)}
@@ -742,7 +773,7 @@ def flip_phase(tmp: str, sess: Any, enc: Any) -> dict:
     target = torch.zeros(sess.pool_bucket, dtype=torch.int32, device=DEVICE)
 
     def resident_outputs() -> Dict[str, torch.Tensor]:
-        out = fleet_tick_block(sess._cols, target, now, stale,
+        out = fleet_tick_block(sess._shards[0], target, now, stale,
                                num_pools=sess.pool_bucket,
                                num_slots=sess.node_bucket)
         return {k: v.clone() for k, v in out.items()}
@@ -823,11 +854,571 @@ def flip_phase(tmp: str, sess: Any, enc: Any) -> dict:
             "session_outputs_equal": True}
 
 
+# ------------------------------------------------------ phase 8: the mesh
+
+
+def set_mesh(shards: int) -> None:
+    """The planner's shard count for the calls that follow."""
+    os.environ["TPU_CC_PLANNER_MESH"] = str(shards)
+
+
+def shard_blocks(cols: np.ndarray,
+                 mesh: List[torch.device]) -> List[torch.Tensor]:
+    rows = cols.shape[1] // len(mesh)
+    return [torch.from_numpy(np.ascontiguousarray(
+        cols[:, i * rows:(i + 1) * rows])).to(dev)
+        for i, dev in enumerate(mesh)]
+
+
+def check_mesh_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
+    """Phase 8 (a): K1's partial form on each of 8 shards and K4 over the
+    partials, each against its plain version, and the combine against
+    the unsharded K1 over the same block."""
+    from tpu_cc_manager_torch.kernels.fleet_tick import (
+        MASK_KEYS, counts_len, fleet_tick_block, fleet_tick_partial,
+        fleet_tick_partial_reference)
+    from tpu_cc_manager_torch.kernels.mesh_combine import (
+        mesh_combine, mesh_combine_reference, mesh_sum, mesh_sum_reference)
+    from tpu_cc_manager_torch.plan import MODE_CODES, bucket_nodes
+
+    now, stale = int(time.time()), 3600
+    nb, pb, shards = bucket_nodes(SESSION_NODES), 8, MESH_SHARDS
+    rows = nb // shards
+    # every other slot empty, 7 pools and the padding pool, padding rows
+    # in the last shard, and hostile slice ids (negative, past the width)
+    cols = bench_columns(SESSION_NODES, nb, 7, pb, now, 31, slice_stride=2)
+    rng = np.random.default_rng(32)
+    hostile = rng.choice(SESSION_NODES, 4096, replace=False)
+    cols[2, hostile] = rng.integers(-2 * nb, 2 * nb, hostile.size)
+    cols[2, hostile[:4]] = [-(2 ** 31), 2 ** 31 - 1, -1, nb]
+    target = torch.full((pb,), MODE_CODES["on"], dtype=torch.int32,
+                        device=DEVICE)
+    blocks = shard_blocks(cols, [DEVICE] * shards)
+    m = counts_len(pb)
+    counts = torch.empty((shards, m), dtype=torch.int32, device=DEVICE)
+    slots = torch.empty((shards, 6, nb), dtype=torch.int32, device=DEVICE)
+    kw = {"num_pools": pb, "num_slots": nb}
+    masks, err_p = [], 0
+    for i, block in enumerate(blocks):
+        masks.append(fleet_tick_partial(block, target, now, stale,
+                                        counts=counts[i], slots=slots[i],
+                                        **kw))
+        torch.cuda.synchronize()
+        w_masks, w_counts, w_slots = fleet_tick_partial_reference(
+            block, target, now, stale, **kw)
+        err_p = max(err_p, max_abs_err(
+            {"masks": masks[-1], "counts": counts[i], "slots": slots[i]},
+            {"masks": w_masks, "counts": w_counts, "slots": w_slots}))
+    require(err_p == 0, f"fleet_tick_partial: max |kernel - plain| = {err_p}")
+    untouched = int((slots[:, 0] == 2 ** 31 - 1).all(dim=0).sum())
+    require(untouched > 0, "no slot is left untouched by every shard")
+
+    got = mesh_combine(counts, slots, num_pools=pb)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, mesh_combine_reference(counts, slots,
+                                                  num_pools=pb))
+    require(err == 0, f"mesh_combine: max |kernel - plain| = {err}")
+    whole = fleet_tick_block(torch.from_numpy(cols).to(DEVICE), target, now,
+                             stale, **kw)
+    mask = torch.cat(masks, dim=1)
+    got.update({key: mask[j] for j, key in enumerate(MASK_KEYS)})
+    err_whole = max_abs_err(got, whole)
+    require(err_whole == 0,
+            f"8 partials + mesh_combine vs K1 unsharded: {err_whole}")
+
+    partial_read = 4 * 8 * rows + 4 * pb
+    partial_written = 7 * rows + 4 * m + 4 * 6 * nb
+    t_bytes = (partial_read + partial_written) / rate
+    t_ops = rows * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
+    b0 = blocks[0]
+    partial = {
+        "shape": f"rows{rows}_slots{nb}_pb{pb}", "rows": rows, "slots": nb,
+        "pb": pb, "shards": shards, "max_abs_err": err_p,
+        "ms": device_ms(lambda: fleet_tick_partial(
+            b0, target, now, stale, counts=counts[0], slots=slots[0], **kw)),
+        "plain_ms": device_ms(lambda: fleet_tick_partial_reference(
+            b0, target, now, stale, **kw)),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    finding(kernel="fleet_tick_partial", **partial)
+
+    read = 4 * shards * (6 * nb + m)
+    written = 4 * (m + 2 * pb) + 2 * nb
+    t_bytes = (read + written) / rate
+    t_ops = (6 * shards * nb + shards * m) / PEAK_SCALAR_OPS
+    combine = {
+        "shape": f"s{shards}_slots{nb}_pb{pb}", "rows": nb, "shards": shards,
+        "pb": pb, "untouched_slots": untouched, "max_abs_err": err,
+        "max_abs_err_vs_unsharded_k1": err_whole,
+        "bytes_read": read, "bytes_written": written,
+        "ms": device_ms(lambda: mesh_combine(counts, slots, num_pools=pb)),
+        "plain_ms": device_ms(lambda: mesh_combine_reference(
+            counts, slots, num_pools=pb)),
+        "library_ms": device_ms(lambda: (
+            counts.sum(dim=0), slots.amin(dim=0), slots.amax(dim=0))),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    finding(kernel="mesh_combine", **combine)
+
+    # the counts-only form at the dry run's shape, sums that wrap included
+    part = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (shards, 6)).astype(np.int32)).to(DEVICE)
+    sums = mesh_sum(part)
+    torch.cuda.synchronize()
+    err_sum = max_abs_err({"sum": sums}, {"sum": mesh_sum_reference(part)})
+    require(err_sum == 0, f"mesh_sum: max |kernel - plain| = {err_sum}")
+    t_bytes = 4 * (shards * 6 + 6) / rate
+    counts_only = {
+        "shape": f"s{shards}_m6_counts_only", "rows": 6, "shards": shards,
+        "max_abs_err": err_sum,
+        "ms": device_ms(lambda: mesh_sum(part)),
+        "plain_ms": device_ms(lambda: mesh_sum_reference(part)),
+        "library_ms": device_ms(lambda: part.sum(dim=0)),
+        "bound_ms": 1e3 * max(t_bytes, shards * 6 / PEAK_SCALAR_OPS),
+        "bound_by": "bytes"}
+    finding(kernel="mesh_combine", **counts_only)
+    del blocks, counts, slots, masks, got, whole, mask
+    torch.cuda.empty_cache()
+    return [partial], [combine, counts_only]
+
+
+def check_shard_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
+    """Phase 8 (a), the mesh's entry forms of K2 and K3, each against its
+    plain version: K2 on every shard block of the 1M mesh (a row offset
+    and the shard's width) at kb 16,384 with the first and last row of
+    every shard among the indices plus padding; K3 at the dry run's
+    per-shard shape (8 nodes, 2 local slices) on each of its 8 shards and
+    at its unsharded cross-check (64 nodes, 16 slices)."""
+    from tpu_cc_manager_torch.graft_entry import _example_fleet
+    from tpu_cc_manager_torch.kernels.delta_scatter import (
+        delta_scatter, delta_scatter_reference)
+    from tpu_cc_manager_torch.kernels.fleet_tick import (
+        fleet_plan, fleet_plan_reference)
+    from tpu_cc_manager_torch.plan import bucket_deltas, bucket_nodes
+
+    nb, shards = bucket_nodes(SESSION_NODES), MESH_SHARDS
+    rows = nb // shards
+    k = int(SESSION_NODES * DELTA_RATE)
+    kb = bucket_deltas(k)
+    rng = np.random.default_rng(51)
+    edges = np.array([r for i in range(shards)
+                      for r in (i * rows, (i + 1) * rows - 1)], np.int32)
+    rest = np.setdiff1d(np.arange(SESSION_NODES, dtype=np.int32), edges)
+    idx_h = np.full(kb, nb, np.int32)
+    idx_h[:k] = rng.permutation(np.concatenate(
+        [edges, rng.choice(rest, k - edges.size, replace=False)]))
+    idx = torch.from_numpy(idx_h).to(DEVICE)
+    vals = torch.from_numpy(
+        rng.integers(-9, 9, (8, kb)).astype(np.int32)).to(DEVICE)
+    got, want, library, err = [], [], [], 0
+    for i in range(shards):
+        base = torch.from_numpy(
+            rng.integers(-9, 9, (8, rows)).astype(np.int32)).to(DEVICE)
+        got.append(base.clone())
+        want.append(base.clone())
+        delta_scatter(got[i], idx, vals, row0=i * rows)
+        torch.cuda.synchronize()
+        delta_scatter_reference(want[i], idx, vals, row0=i * rows)
+        err = max(err, max_abs_err({"block": got[i]}, {"block": want[i]}))
+        require(torch.equal(got[i][:, [0, -1]], vals[:, [
+            int(np.nonzero(idx_h == i * rows + r)[0][0])
+            for r in (0, rows - 1)]]), f"shard {i}: an edge row was lost")
+        live = (idx_h >= i * rows) & (idx_h < (i + 1) * rows)
+        sel = torch.from_numpy(np.nonzero(live)[0]).to(DEVICE)
+        library.append((want[i], idx[sel].long() - i * rows, vals[:, sel]))
+    require(err == 0, f"delta_scatter on shards: max |kernel - plain| = {err}")
+
+    def scatter(fn: Callable[..., None], blocks: List[torch.Tensor]) -> None:
+        for i, block in enumerate(blocks):
+            fn(block, idx, vals, row0=i * rows)
+
+    # each launch reads every index; only its live slots' values move
+    moved = shards * 4 * kb + 2 * 4 * 8 * k
+    k2 = {"shape": f"kb{kb}_{shards}x{rows}", "kb": kb, "live": k,
+          "shards": shards, "shard_rows": rows, "max_abs_err": err,
+          "ms": device_ms(lambda: scatter(delta_scatter, got)),
+          "plain_ms": device_ms(
+              lambda: scatter(delta_scatter_reference, want)),
+          "library_ms": device_ms(lambda: [
+              block.__setitem__((slice(None), local), v)
+              for block, local, v in library]),
+          "bound_ms": 1e3 * moved / rate, "bound_by": "bytes"}
+    finding(kernel="delta_scatter", **k2)
+
+    per_shard, n_slices = 8, 2
+    desired, observed, _ = _example_fleet(per_shard * shards, 1, seed=1,
+                                          device=DEVICE)
+    local_ids = torch.arange(n_slices, dtype=torch.int32, device=DEVICE
+                             ).repeat_interleave(per_shard // n_slices)
+    cases = [(f"n{per_shard}_s{n_slices}_{shards}x", [
+        (desired[i * per_shard:(i + 1) * per_shard],
+         observed[i * per_shard:(i + 1) * per_shard], local_ids, n_slices)
+        for i in range(shards)])]
+    global_ids = torch.cat([local_ids + i * n_slices for i in range(shards)])
+    cases.append((f"n{per_shard * shards}_s{n_slices * shards}",
+                  [(desired, observed, global_ids, n_slices * shards)]))
+    k3 = []
+    for name, calls in cases:
+        err = 0
+        for d, o, ids, s in calls:
+            out = fleet_plan(d, o, ids, num_slices=s)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(
+                out, fleet_plan_reference(d, o, ids, num_slices=s)))
+        require(err == 0, f"fleet_plan {name}: max |kernel - plain| = {err}")
+        t_bytes = sum(3 * 4 * d.numel() + 2 * d.numel() + 2 * s + 4 * 12
+                      for d, _, _, s in calls) / rate
+        t_ops = sum(d.numel() for d, _, _, _ in calls) * K1_OPS_PER_ROW / (
+            PEAK_SCALAR_OPS)
+        row = {"shape": name, "launches_per_call": len(calls),
+               "max_abs_err": err,
+               "ms": device_ms(lambda: [fleet_plan(d, o, i, num_slices=s)
+                                        for d, o, i, s in calls]),
+               "plain_ms": device_ms(lambda: [
+                   fleet_plan_reference(d, o, i, num_slices=s)
+                   for d, o, i, s in calls]),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        finding(kernel="fleet_plan", **row)
+        k3.append(row)
+    del got, want, library
+    torch.cuda.empty_cache()
+    return [k2], k3
+
+
+def stale_firm(ev_ts: np.ndarray, clocks: List[int], stale_s: int,
+               margin: int = 120) -> np.ndarray:
+    """Rows whose stale_evidence verdict cannot move between the clocks
+    two runs read: their age sits more than ``margin`` seconds from the
+    threshold at every one of them (or they carry no evidence)."""
+    firm = np.ones(ev_ts.shape, bool)
+    for now in clocks:
+        firm &= (ev_ts < 0) | (np.abs(now - ev_ts.astype(np.int64)
+                                      - stale_s) > margin)
+    return firm
+
+
+def mesh_session_phase(shards: int) -> Tuple[dict, Any, Any]:
+    """Phase 8 (b): phase 4's 1M session at ``shards`` shards and at one,
+    in lockstep over the same fleet and the same deltas: a rebuild,
+    MESH_INCR_TICKS incremental ticks at 1 % deltas and a forced full
+    tick, every output array compared after each tick. stale_evidence
+    compares exactly when both sessions read the same clock, else on the
+    rows no clock between them can move."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch import plan
+
+    now = int(time.time())
+    stale_s = int(plan._stale_after_s())
+    runs = {}
+    for s in (shards, 1):
+        set_mesh(s)  # a session reads its mesh once, when it is made
+        runs[s] = {"enc": synthetic_encoding(SESSION_NODES, now=now),
+                   "sess": plan.TickSession(full_every=0, device=DEVICE),
+                   "times": {"incremental_tick_s": []}}
+        require(len(runs[s]["sess"].mesh) == s, "mesh size")
+    ev_ts = runs[1]["enc"]._ev_ts.copy()
+    rng = np.random.default_rng(41)
+    k = int(SESSION_NODES * DELTA_RATE)
+    kinds, exact_stale = [], 0
+    for r in range(MESH_INCR_TICKS + 2):
+        rows = (rng.choice(SESSION_NODES, size=k, replace=False)
+                if 0 < r <= MESH_INCR_TICKS else ())
+        full = r == MESH_INCR_TICKS + 1
+        ticks = {}
+        for s, run in runs.items():
+            enc, sess, times = run["enc"], run["sess"], run["times"]
+            for i in rows:
+                enc.apply({"metadata": {"name": enc._names[i], "labels": {
+                    L.CC_MODE_LABEL: "on",
+                    L.CC_MODE_STATE_LABEL: "off" if r % 2 else "failed",
+                    L.TPU_SLICE_LABEL: f"s{i // SLICE_HOSTS}"}}})
+            if full:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(DEVICE)
+                base = torch.cuda.memory_allocated(DEVICE)
+            t0 = time.perf_counter()
+            res = sess.tick(enc, force_full=full)  # raises on drift
+            dt = time.perf_counter() - t0
+            if r == 0:
+                times["rebuild_tick_s"] = dt
+            elif full:
+                times["forced_full_tick_s"] = dt
+                times["full_tick_peak_extra_bytes"] = (
+                    torch.cuda.max_memory_allocated(DEVICE) - base)
+            else:
+                times["incremental_tick_s"].append(dt)
+            ticks[s] = (res.kind, sess._now_s, res.outputs)
+        (kind_a, now_a, out_a), (kind_b, now_b, out_b) = ticks.values()
+        kinds.append(kind_a)
+        require(kind_a == kind_b and set(out_a) == set(out_b),
+                f"tick {r}: {kind_a} vs {kind_b}")
+        exact_stale += now_a == now_b
+        for key in out_a:
+            x, y = np.asarray(out_a[key]), np.asarray(out_b[key])
+            if key == "stale_evidence" and now_a != now_b:
+                firm = stale_firm(ev_ts[:x.size], [now_a, now_b], stale_s)
+                x, y = x[firm], y[firm]
+            require(x.dtype == y.dtype and np.array_equal(x, y),
+                    f"{shards}-shard vs 1-shard session: {key} differs on "
+                    f"the {kind_a} tick {r}")
+    want = ["rebuild"] + ["incremental"] * MESH_INCR_TICKS + ["full"]
+    require(kinds == want, f"tick kinds {kinds}")
+    out = {"nodes": SESSION_NODES, "shards": shards, "outputs_equal": True,
+           "ticks_with_one_clock": exact_stale, "ticks": len(kinds)}
+    for s, run in runs.items():
+        sess = run["sess"]
+        require(len(sess._shards) == s, f"{len(sess._shards)} shards")
+        out["sharded" if s == shards else "single"] = dict(
+            run["times"], stats=dict(sess.stats),
+            shard_devices=[str(b.device) for b in sess._shards])
+    return out, runs[shards]["sess"], runs[shards]["enc"]
+
+
+def mesh_split(sess: Any) -> dict:
+    """Device time of one sharded full tick over ``sess``'s resident
+    shards, by part, read from CUDA events that ``plan._mesh_tick``
+    records at its own stage boundaries (``plan.MESH_MARK``) on every
+    card's stream, median of REPS ticks after WARM: the shards' K1
+    partials (the slowest card's), the root card's wait for the partials
+    on other cards and their copies, K4, and the root card's whole span.
+    Each card spins before the start mark, so the host has queued the
+    tick before its device time starts."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.kernels.fleet_tick import counts_len
+
+    shards = sess._shards
+    root = shards[0].device
+    run = plan._eval_fn(sess.node_bucket, sess.pool_bucket, sess.mesh)
+    target = np.zeros(sess.pool_bucket, np.int32)
+    marks: Dict[str, Dict[torch.device, Any]] = {}
+
+    def mark(stage: str, cards: Tuple[torch.device, ...]) -> None:
+        marks[stage] = {}
+        for card in cards:
+            if stage == "start":
+                with torch.cuda.device(card):
+                    torch.cuda._sleep(SPIN_CYCLES)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(card))
+            marks[stage][card] = event
+
+    parts: Dict[str, List[float]] = {
+        "partials_ms": [], "peer_wait_and_copy_ms": [],
+        "mesh_combine_ms": [], "tick_device_ms": []}
+    plan.MESH_MARK = mark
+    try:
+        for rep in range(WARM + REPS):
+            run(shards, target, int(time.time()), 3600)
+            for event in marks["combine"].values():
+                event.synchronize()
+            if rep < WARM:
+                continue
+            start, done, landed, combined = (
+                marks[k] for k in ("start", "partials", "copies", "combine"))
+            parts["partials_ms"].append(max(
+                start[card].elapsed_time(done[card]) for card in start))
+            parts["peer_wait_and_copy_ms"].append(
+                done[root].elapsed_time(landed[root]))
+            parts["mesh_combine_ms"].append(
+                landed[root].elapsed_time(combined[root]))
+            parts["tick_device_ms"].append(
+                start[root].elapsed_time(combined[root]))
+    finally:
+        plan.MESH_MARK = None
+    cards = {block.device for block in shards}
+    peers = sum(block.device != root for block in shards)
+    partial_bytes = 4 * (6 * sess.node_bucket + counts_len(sess.pool_bucket))
+    out = {"shards": len(shards), "cards": len(cards),
+           "clock": "events in plan._mesh_tick",
+           "peer_copies": 2 * peers, "peer_copy_bytes": peers * partial_bytes,
+           "partial_buffer_bytes": len(shards) * partial_bytes,
+           **{key: statistics.median(v) for key, v in parts.items()}}
+    finding(phase="mesh_tick_split", **out)
+    return out
+
+
+def node_ev_ts(nodes: List[dict]) -> Tuple[np.ndarray, List[str]]:
+    from tpu_cc_manager_torch import plan
+
+    enc = plan.FleetEncoding()
+    enc.sync(nodes)
+    snap = enc.snapshot()
+    return snap.columns["ev_ts"][:snap.n_nodes], snap.names
+
+
+def same_reports(a: dict, b: dict, firm_names: set, what: str) -> None:
+    """Reports equal key by key; stale_evidence on the rows whose verdict
+    cannot move between the two scans' clocks."""
+    require(set(a) == set(b), f"{what}: report keys differ")
+    for key in a:
+        if key == "stale_evidence":
+            require(set(a[key]) & firm_names == set(b[key]) & firm_names,
+                    f"{what}: stale_evidence differs")
+        elif key != "problems":
+            require(a[key] == b[key], f"{what}: {key} differs")
+    strip = [p for p in a["problems"] if "stale" not in p]
+    require(strip == [p for p in b["problems"] if "stale" not in p],
+            f"{what}: problems differ")
+
+
+def write_kubeconfig(path: str, port: int) -> None:
+    with open(path, "w") as f:
+        f.write("apiVersion: v1\nkind: Config\ncurrent-context: smoke\n"
+                "contexts: [{name: smoke, context: {cluster: local, "
+                "user: dev}}]\n"
+                "clusters: [{name: local, cluster: {server: "
+                f"\"http://127.0.0.1:{port}\"}}}}]\n"
+                "users: [{name: dev, user: {}}]\n")
+
+
+def fleet_controller_phase(tmp: str, n_nodes: int = FLEET_NODES,
+                           cli_nodes: int = CLI_NODES) -> dict:
+    """Phase 8 (d): the fleet controller's scan at MESH_SHARDS shards and
+    at one over the same FakeKube, then ``fleet-controller --once`` in a
+    subprocess against a FakeApiServer."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.fleet import FleetController
+    from tpu_cc_manager_torch.k8s.apiserver import FakeApiServer
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+
+    t0 = time.perf_counter()
+    nodes = make_nodes(n_nodes, seed=100)
+    kube = FakeKube()
+    for node in nodes:
+        kube.add_node(node)
+    setup_s = time.perf_counter() - t0
+    stale_s = int(plan._stale_after_s())
+    reports, scan_s, clocks, shards = {}, {}, [], {}
+    for s in (MESH_SHARDS, 1):
+        set_mesh(s)
+        ctrl = FleetController(kube, port=0)
+        t0 = time.perf_counter()
+        reports[s] = ctrl.scan_once()
+        scan_s[s] = time.perf_counter() - t0
+        clocks.append(ctrl._tick_session._now_s)
+        shards[s] = len(ctrl._tick_session._shards)
+    require(shards == {MESH_SHARDS: MESH_SHARDS, 1: 1}, f"shards {shards}")
+    ev_ts, names = node_ev_ts(nodes)
+    firm = set(np.array(names)[stale_firm(ev_ts, clocks, stale_s)].tolist())
+    same_reports(reports[MESH_SHARDS], reports[1], firm,
+                 f"fleet scan at {MESH_SHARDS} shards vs 1")
+    require(reports[1]["nodes"] == n_nodes, "fleet scan node count")
+
+    # the CLI against a live (fake) API server, on the mesh
+    srv = FakeApiServer(port=0).start()
+    try:
+        cli_fleet = make_nodes(cli_nodes, seed=101)
+        for node in cli_fleet:
+            srv.store.add_node(node)
+        kubeconfig = os.path.join(tmp, "kubeconfig.yaml")
+        write_kubeconfig(kubeconfig, srv.port)
+        env = dict(os.environ, KUBECONFIG=kubeconfig,
+                   TPU_CC_PLANNER_MESH=str(MESH_SHARDS),
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_cc_manager_torch", "fleet-controller",
+             "--once"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        cli_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    # exit 1 means the audit found problems (the seeded fleet has failed
+    # nodes and missing evidence); anything else is a failure
+    require(proc.returncode in (0, 1),
+            f"fleet-controller --once exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    cli_report = json.loads(proc.stdout)
+    set_mesh(1)
+    local = FakeKube()
+    for node in cli_fleet:
+        local.add_node(node)
+    ctrl = FleetController(local, port=0)
+    want = ctrl.scan_once()
+    ev_ts, names = node_ev_ts(cli_fleet)
+    firm = set(np.array(names)[stale_firm(
+        ev_ts, [ctrl._tick_session._now_s, int(time.time())],
+        stale_s, margin=600)].tolist())
+    same_reports(cli_report, want, firm, "fleet-controller --once")
+    require(proc.returncode == (1 if want["problems"] else 0),
+            "fleet-controller --once exit code vs its problems")
+    return {"nodes": n_nodes, "setup_s": setup_s,
+            "scan_s": {str(k): v for k, v in scan_s.items()},
+            "needs_flip": len(reports[1]["needs_flip"]),
+            "problems": len(reports[1]["problems"]),
+            "cli_nodes": cli_nodes, "cli_s": cli_s,
+            "cli_rc": proc.returncode, "reports_equal": True}
+
+
+def mesh_phase(rate: float, tmp: str) -> Tuple[dict, Dict[str, int]]:
+    """Phase 8 (b) to (e); launch counts from 0 before (b) to after
+    (d)."""
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.graft_entry import dryrun_multichip
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    session, sess, enc = mesh_session_phase(MESH_SHARDS)
+    # the restart analog (a flip's reset) leaves the resident shard
+    # blocks as they were, and the session still verifies after it
+    before = [block.clone() for block in sess._shards]
+    backend = CudaBackend(state_dir=os.path.join(tmp, "mesh-state"))
+    backend.find_tpus()
+    backend.teardown_runtime()
+    require(all(torch.equal(a, b) for a, b in zip(before, sess._shards)),
+            "the restart analog changed a resident shard block")
+    require(sess.tick(enc, force_full=True).kind == "full",
+            "the sharded session did not verify after the restart analog")
+    del before
+    session["verified_after_reset"] = True
+    finding(phase="mesh_session", **session)
+    t0 = time.perf_counter()
+    needs_flip, mode_counts, coherent = dryrun_multichip(MESH_SHARDS, DEVICE)
+    dryrun = {"shards": MESH_SHARDS, "seconds": time.perf_counter() - t0,
+              "mode_counts": mode_counts.tolist(),
+              "needs_flip": int(needs_flip.sum()),
+              "slices_coherent": int(coherent.sum())}
+    finding(phase="dryrun_multichip", **dryrun)
+    fleet = fleet_controller_phase(tmp)
+    finding(phase="fleet_controller", **fleet)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    split = mesh_split(sess)
+    del sess
+    multi = multi_card_phase()
+    set_mesh(1)
+    return {"session": session, "dryrun": dryrun, "fleet": fleet,
+            "split": split, "multi_card": multi}, launches
+
+
+def multi_card_phase() -> dict:
+    """Phase 8 (e): with two cards or more, (b) again at 2 shards per
+    card over every card, with the split of one sharded full tick (peer
+    copies included); with one card, a finding that says why not."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        multi = {"ran": False,
+                 "why": f"{cards} CUDA device visible: phase (e) spreads "
+                        "2 shards per card over two cards or more"}
+    else:
+        multi, sess, _ = mesh_session_phase(2 * cards)
+        multi["split"] = mesh_split(sess)
+        multi["ran"] = True
+    finding(phase="mesh_multi_card", cards=cards, **multi)
+    return multi
+
+
 # ---------------------------------------------------------------- main
 
 
-#: the kernels of phases 3-5; probe_add_one's path is phase 7
+#: the kernels of phases 3-5; probe_add_one's path is phase 7, the
+#: mesh kernels' phase 8
 PLANNER_KERNELS = ("fleet_tick", "delta_scatter", "fleet_plan")
+MESH_KERNELS = ("fleet_tick_partial", "mesh_combine", "delta_scatter",
+                "fleet_plan")
 KERNELS = {
     "fleet_tick": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
                    "tpu_cc_manager/plan.py:790"),
@@ -837,12 +1428,18 @@ KERNELS = {
                    "tpu_cc_manager/plan.py:689"),
     "probe_add_one": ("tpu_cc_manager_torch/csrc/probe.cu",
                       "tpu_cc_manager/device/jaxdev.py:260"),
+    "fleet_tick_partial": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
+                           "tpu_cc_manager/plan.py:790"),
+    "mesh_combine": ("tpu_cc_manager_torch/csrc/mesh_combine.cu",
+                     "tpu_cc_manager/plan.py:864"),
 }
 
 
 def run() -> None:
     from tpu_cc_manager_torch.kernels import LAUNCHES, _build, reset_launches
 
+    # phases 1-7 on one shard, whatever the host has; phase 8 sets its own
+    set_mesh(1)
     smi = nvidia_smi()
     finding(phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
             device=torch.cuda.get_device_name(0), nvidia_smi=smi)
@@ -886,6 +1483,20 @@ def run() -> None:
             "the flip path never launched probe_add_one")
     launches["probe_add_one"] = flip_launches["probe_add_one"]
 
+    measured["fleet_tick_partial"], measured["mesh_combine"] = (
+        check_mesh_kernels(rate))
+    k2_shards, k3_shards = check_shard_kernels(rate)
+    measured["delta_scatter"] += k2_shards
+    measured["fleet_plan"] += k3_shards
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        mesh, mesh_launches = mesh_phase(rate, tmp)
+    finding(phase="mesh_path", launches=mesh_launches)
+    for name in MESH_KERNELS:
+        require(mesh_launches[name] > 0,
+                f"the mesh path never launched {name}")
+    launches["fleet_tick_partial"] = mesh_launches["fleet_tick_partial"]
+    launches["mesh_combine"] = mesh_launches["mesh_combine"]
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         # the largest shape the main path gives each kernel
@@ -906,25 +1517,43 @@ def run() -> None:
     print(smi, flush=True)
 
 
-def main() -> int:
+def run_multi_card() -> None:
+    """``--multi-card``: phase 8 (e) alone, on every visible card."""
+    from tpu_cc_manager_torch.kernels import _build
+
+    smi = nvidia_smi()
+    finding(phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
+            devices=[torch.cuda.get_device_name(i)
+                     for i in range(torch.cuda.device_count())],
+            nvidia_smi=smi)
+    _build.library()
+    require(multi_card_phase()["ran"], "--multi-card needs two cards")
+    set_mesh(1)
+    print(smi, flush=True)
+
+
+def main(argv: Tuple[str, ...] = ()) -> int:
+    if list(argv) not in ([], ["--multi-card"]):
+        print("usage: python3 chip_smoke.py [--multi-card]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     try:
-        run()
+        run_multi_card() if argv else run()
     except Exception as e:  # every phase's failure ends the run here
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # the run uses cuda:0 only
+    # the default run drives cuda:0 only; --multi-card drives every card
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count() if argv else 1}}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(tuple(sys.argv[1:])))

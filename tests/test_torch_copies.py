@@ -22,6 +22,9 @@ COPIES = (
     "device/__init__.py", "trace.py", "flightrec.py", "k8s/client.py",
     "k8s/aio.py", "k8s/aio_bridge.py", "flipexec.py", "attest.py",
     "identity.py", "engine.py", "config.py", "modes.py",
+    "k8s/objects.py", "k8s/fake.py", "k8s/apiserver.py", "k8s/__init__.py",
+    "obs.py", "tsring.py", "watch.py", "watchdog.py", "profiler.py",
+    "evidence.py", "leader.py", "fleet.py",
 )
 
 #: module -> [(name, reference block, port block)]

@@ -6,7 +6,7 @@
   sources, function-level imports included.
 - With no CUDA device and no request for the CPU, the entry points
   raise instead of planning on the CPU.
-- The CLI refuses the live API path, which arrives with a later slice.
+- The CLI's live API path (``--kubeconfig``) is the reference's.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card
   or without the repository around it.
 """
@@ -24,7 +24,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpu_cc_manager_torch import plan as tplan  # noqa: E402
-from tpu_cc_manager_torch.graft_entry import entry  # noqa: E402
+from tpu_cc_manager_torch.fleet import FleetController  # noqa: E402
+from tpu_cc_manager_torch.graft_entry import (  # noqa: E402
+    dryrun_multichip, entry,
+)
+from tpu_cc_manager_torch.k8s.fake import FakeKube  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpu_cc_manager_torch"
@@ -87,14 +91,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
                 "config", "__main__", "device.base", "device.cudadev",
                 "device.statefile", "device.native", "device.gate",
                 "device.holders", "device.fake", "k8s.client", "k8s.aio",
-                "k8s.aio_bridge"):
+                "k8s.aio_bridge", "k8s.objects", "k8s.fake",
+                "k8s.apiserver", "obs", "tsring", "watchdog", "profiler",
+                "evidence", "leader", "fleet", "kernels.mesh_combine"):
         assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
 
 
 #: modules of the port that an import names but that arrive with a later
-#: slice, each with the slice that brings it; reached only on paths this
-#: slice never takes (attest.py imports evidence lazily)
-PENDING = {"tpu_cc_manager_torch.evidence": "slice 3 (ROADMAP Queue 1 item 3)"}
+#: slice, each with the slice that brings it; none today
+PENDING: dict = {}
 
 
 def _module_file(name):
@@ -203,6 +208,10 @@ def test_entry_points_raise_without_cuda_and_without_a_cpu_request(
         tplan.warmup(max_nodes=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetController(FakeKube())
     # asking for the CPU is the only way onto it
     assert tplan.analyze_fleet(nodes, device="cpu")["nodes"] == 1
 
@@ -219,14 +228,31 @@ def test_cli_without_cuda_fails_instead_of_planning_on_cpu(child):
     [],
 ])
 def test_kubeconfig_exits_nonzero_naming_the_later_slice(argv, tmp_path,
-                                                         capsys):
+                                                         monkeypatch, capsys):
+    """The live API path is ported now: ``--kubeconfig`` reaches the
+    port's client and fails as the reference's does on a missing file
+    (and on no kubeconfig at all), while ``--from-file`` still wins
+    when both are given."""
+    from tpu_cc_manager import plan as jplan
+
+    monkeypatch.setenv(tplan.DEVICE_ENV, "cpu")
+    monkeypatch.delenv("KUBERNETES_SERVICE_HOST", raising=False)
+    monkeypatch.setenv("KUBECONFIG", str(tmp_path / "missing-kubeconfig"))
     nodes = tmp_path / "nodes.json"
     nodes.write_text(json.dumps({"items": []}))
     argv = [str(nodes) if a == "NODES" else a for a in argv]
-    assert tplan.main(argv) == 2
-    captured = capsys.readouterr()
-    assert "k8s client slice" in captured.err and "--from-file" in captured.err
-    assert captured.out == ""
+    outcomes = []
+    for main in (jplan.main, tplan.main):
+        try:
+            outcomes.append(("rc", main(argv)))
+        except Exception as e:  # noqa: BLE001 - compared across packages
+            outcomes.append(("raised", type(e).__name__))
+        outcomes.append(("out", capsys.readouterr().out))
+    assert outcomes[:2] == outcomes[2:], outcomes
+    if "--from-file" in argv:
+        assert outcomes[0] == ("rc", 0)
+    else:
+        assert outcomes[0][0] == "raised" and outcomes[1] == ("out", "")
 
 
 def test_chip_smoke_fails_without_a_card(child):

@@ -182,7 +182,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         KF.fleet_tick_block(block, torch.zeros(big, dtype=torch.int32), 0,
                             0, num_pools=big, num_slots=64)
     with pytest.raises(ValueError, match="shared memory"):
-        tplan._eval_fn(64, big, torch.device("cpu"))
+        tplan._eval_fn(64, big, (torch.device("cpu"),))
     # a device with no kernel raises instead of running the plain version
     with pytest.raises(ValueError, match="no kernel"):
         KF.fleet_tick_block(block.to("meta"), target.to("meta"), 0, 0, **kw)
@@ -221,7 +221,7 @@ def _node_sharding():
 
 
 @pytest.mark.parametrize("nb,k", [(64, 1), (64, 64), (1024, 100)])
-def test_delta_scatter_plain_version_matches_jax_scatter(nb, k):
+def test_delta_scatter_plain_version_matches_jax_scatter(monkeypatch, nb, k):
     """The single-device in-place scatter equals the JAX donated scatter
     on the 8-device mesh, gathered, with the padding index nb — on rows
     where the reference is well-defined: each shard clips an index it
@@ -241,6 +241,9 @@ def test_delta_scatter_plain_version_matches_jax_scatter(nb, k):
 
     shard = _node_sharding()
     cols = tuple(jax.device_put(base[j].copy(), shard) for j in range(8))
+    # a scatter an earlier test cached may hold a mesh from before a
+    # runtime teardown; build it over the devices the columns sit on
+    monkeypatch.setattr(jplan, "_SCATTER_CACHE", {})
     out = jplan._scatter_fn(nb, kb)(cols, idx, vals)
     want = np.stack([np.asarray(c) for c in out])
 
@@ -286,7 +289,8 @@ def test_scatter_fn_updates_the_resident_block_in_place():
     idx[:2] = [5, 9]
     vals = np.zeros((8, kb), np.int32)
     vals[:, :2] = 7
-    tplan._scatter_fn(nb, kb, torch.device("cpu"))(block, idx, vals)
+    tplan._scatter_fn(nb, kb, (torch.device("cpu"),))([block], idx,
+                                                       vals)
     assert block[:, 5].tolist() == [7] * 8 and block[:, 9].tolist() == [7] * 8
     assert int(block.sum()) == 7 * 16
 

@@ -130,7 +130,8 @@ def test_tick_outputs_checksum_and_report_match_reference(n):
     nb, pb = jsnap.bucket, jplan.BUCKET_MIN_POOLS
     target = np.zeros(pb, np.int32)
     want = jplan._tick_fn(nb, pb)(jsnap.columns, target)
-    got = tplan._tick_fn(nb, pb, torch.device(CPU))(jsnap.columns, target)
+    got = tplan._tick_fn(nb, pb, (torch.device(CPU),))(jsnap.columns,
+                                                        target)
     _same_arrays(got, want)
     assert tplan._outputs_checksum(got) == jplan._outputs_checksum(want)
     _same(tplan._format_report(n, tsnap.names, tsnap.slice_index,

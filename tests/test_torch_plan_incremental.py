@@ -165,7 +165,7 @@ def test_drift_raises_and_next_tick_rebuilds():
     pair.tsess._state["mode_counts"][0] += 1  # inject drift
     with pytest.raises(tplan.IncrementalDriftError):
         tplan.analyze_encoding(pair.tenc, pair.tsess, force_full=True)
-    assert pair.tsess._cols is None
+    assert pair.tsess._shards is None
     assert tplan.analyze_encoding(pair.tenc, pair.tsess) == \
         jplan.analyze_encoding(pair.jenc, pair.jsess)
     assert pair.tsess.stats["rebuilds"] == 2
@@ -179,14 +179,15 @@ def test_zero_column_round_trips_between_ticks():
     pair = Pair(nodes)
     pair.report()
     assert pair.tsess.stats["column_puts"] == 8
-    block = pair.tsess._cols
+    block, = pair.tsess._shards
     for round_ in range(3):
         for i in (1, 6, 17):
             pair.apply(_flip(nodes, f"n{i:03d}",
                              "on" if round_ % 2 else "off"))
         pair.report()
     pair.report(force_full=True)
-    assert pair.tsess._cols is block  # updated in place, never replaced
+    # updated in place, never replaced
+    assert len(pair.tsess._shards) == 1 and pair.tsess._shards[0] is block
     pair.report()
     assert pair.tsess.stats == pair.jsess.stats
     assert pair.tsess.stats["column_puts"] == 8
@@ -204,7 +205,7 @@ def test_bucket_growth_triggers_rebuild_and_stays_correct():
     assert _norm(pair.report()) == _legacy_report(nodes)
     assert pair.tsess.stats["rebuilds"] == 2
     assert pair.tsess.node_bucket == pair.jsess.node_bucket == 128
-    assert tuple(pair.tsess._cols.shape) == (8, 128)
+    assert [tuple(b.shape) for b in pair.tsess._shards] == [(8, 128)]
 
 
 def test_remove_swap_with_last_interacts_with_compaction():

@@ -1,16 +1,19 @@
 """CLI entrypoint: ``python -m tpu_cc_manager_torch``.
 
-The two subcommands that need no cluster, as the reference's
+The subcommands the port has, as the reference's
 ``tpu_cc_manager/__main__.py`` runs them:
 
 - ``probe-devices``: print the device inventory as JSON; ``--backend
   cuda`` (default) asks the live CUDA runtime, ``--backend fake`` the
   in-memory fake;
-- ``get-cc-mode``: print per-device modes as JSON.
+- ``get-cc-mode``: print per-device modes as JSON;
+- ``fleet-controller``: the long-running read-only fleet audit service
+  (planner scans on the GPU served as /metrics + /report — see
+  tpu_cc_manager_torch.fleet); ``--once`` runs one scan, prints the
+  report and exits non-zero when the audit found problems.
 
 Every other subcommand, and the long-lived agent (no subcommand), exits 2
-and names the ROADMAP item that ports it: they need the port's k8s layer
-and controllers, which come with later slices.
+and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ import sys
 from tpu_cc_manager_torch.config import build_parser, parse_config
 from tpu_cc_manager_torch.device.base import DeviceError
 from tpu_cc_manager_torch.engine import ModeEngine, NullDrainer
+from tpu_cc_manager_torch.k8s.client import (
+    ApiException, HttpKubeClient, KubeConfig,
+)
+from tpu_cc_manager_torch.obs import setup_logging
+
+log = logging.getLogger("tpu-cc-manager")
 
 #: subcommand (None = the agent) -> the ROADMAP item that ports it
 NOT_PORTED = {
@@ -30,11 +39,111 @@ NOT_PORTED = {
     "set-cc-mode": "ROADMAP Queue 1 item 3 (slice 3: set-cc-mode)",
     "doctor": "ROADMAP Queue 1 item 3 (slice 3: doctor)",
     "rollout": "ROADMAP Queue 1 item 4 (the controllers)",
-    "fleet-controller": "ROADMAP Queue 1 item 4 (the controllers)",
     "policy-controller": "ROADMAP Queue 1 item 4 (the controllers)",
     "webhook": "ROADMAP Queue 1 item 5 (entry points and simlab)",
     "simlab": "ROADMAP Queue 1 item 5 (entry points and simlab)",
 }
+
+
+def _kube_client(cfg):
+    config = KubeConfig.load(cfg.kubeconfig)
+    if os.environ.get("TPU_CC_KUBE_AIO", "").lower() in ("1", "true",
+                                                         "yes"):
+        # the asyncio I/O core: all of this process's node reads,
+        # writes and watches multiplex one event loop's pipelined
+        # connection pool behind a sync façade. Opt-in: exec-credential
+        # auth flows are not implemented there and stay on HttpKubeClient
+        from tpu_cc_manager_torch.k8s.aio_bridge import SyncKubeFacade
+
+        return SyncKubeFacade(config)
+    return HttpKubeClient(config)
+
+
+def _leader_elector(kube, lease_name: str):
+    """LeaderElector for a controller, when TPU_CC_LEADER_ELECT=true
+    (manifests set it; single-replica/dev runs skip election). Identity
+    is the pod name (downward API) so `kubectl get lease` names the
+    actual holder pod."""
+    from tpu_cc_manager_torch.config import _env_bool
+
+    if not _env_bool("TPU_CC_LEADER_ELECT", False):
+        return None
+    import socket
+
+    from tpu_cc_manager_torch.leader import LeaderElector
+
+    identity = (
+        os.environ.get("POD_NAME")
+        or f"{socket.gethostname()}-{os.getpid()}"
+    )
+    if isinstance(kube, HttpKubeClient):
+        # the elector gets its OWN unlimited client: lease renewals
+        # must never queue behind flow-controlled scan traffic (a renew
+        # delayed past the lease duration self-demotes the leader)
+        kube = HttpKubeClient(kube.config, qps=0)
+    return LeaderElector(
+        kube,
+        name=lease_name,
+        identity=identity,
+        namespace=os.environ.get("OPERATOR_NAMESPACE", "tpu-system"),
+    )
+
+
+def _stop_on_sigterm(stop_fn) -> None:
+    """Make SIGTERM (the kubelet's pod-stop signal) a clean shutdown for
+    long-running commands. The stop runs on a helper thread: a handler
+    calling it inline could re-enter a lock the interrupted main thread
+    already holds."""
+    import signal
+    import threading
+
+    def handler(signum, frame):
+        threading.Thread(
+            target=stop_fn, daemon=True, name="sigterm-stop"
+        ).start()
+
+    try:
+        signal.signal(signal.SIGTERM, handler)
+    except ValueError:
+        pass  # not the main thread (embedded use): skip
+
+
+def _fleet_controller(cfg, args) -> int:
+    """``fleet-controller``, as the reference runs it: the planner's
+    device is the port's (``cuda:0`` unless ``TPU_CC_TORCH_DEVICE`` asks
+    for another), its mesh ``TPU_CC_PLANNER_MESH``'s."""
+    from tpu_cc_manager_torch.fleet import FleetController
+
+    # production default: build and launch the planner's kernels at
+    # start; --once audits and in-process embedders skip it, and
+    # TPU_CC_PLANNER_WARMUP=0 opts a long-running controller out
+    if not args.once:
+        os.environ.setdefault("TPU_CC_PLANNER_WARMUP", "1")
+    try:
+        kube = _kube_client(cfg)
+        controller = FleetController(
+            kube,
+            selector=args.selector,
+            interval_s=args.interval,
+            port=args.port,
+            leader_elector=_leader_elector(kube, "tpu-cc-fleet-controller"),
+        )
+        if args.once:
+            # cron/CI audit: one scan, report on stdout (problems
+            # inside it), exit code says whether an operator must look
+            report = controller.scan_once()
+            problems = report["problems"]
+            print(json.dumps(report, indent=2, sort_keys=True))
+            if problems:
+                log.error("fleet audit found problems: %s", problems)
+            return 1 if problems else 0
+        _stop_on_sigterm(controller.stop)
+        # OSError belongs inside the guard too: RouteServer binds
+        # lazily in run(), so a busy --port surfaces here
+        return controller.run()
+    except (ValueError, OSError, ApiException) as e:
+        log.error("fleet-controller refused: %s", e)
+        return 1
 
 
 def main(argv=None) -> int:
@@ -45,12 +154,10 @@ def main(argv=None) -> int:
               f"{NOT_PORTED[command]}", file=sys.stderr)
         return 2
     cfg, args = parse_config(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if cfg.debug else logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-        stream=sys.stderr,
-        force=True,
-    )
+    setup_logging(cfg.debug, fmt=cfg.log_format)
+
+    if args.command == "fleet-controller":
+        return _fleet_controller(cfg, args)
 
     if args.command == "probe-devices":
         # Device inventory; --backend cuda (default) asks the live CUDA

@@ -14,6 +14,14 @@
 // design adds on top: written by the init, hit by atomics, read back by
 // the epilogue. Measured times and the bound per shape: PERF.md.
 //
+// On a mesh of S shards (plan.py's sharded tick) each shard runs the
+// partial entry, tcc_fleet_tick_partial: tick_init and tick_rows over its
+// own rows, with the global slot and pool widths, writing its mask columns
+// and its raw counts and slot min/max into one row of the partial buffers.
+// No epilogue runs; K4 (csrc/mesh_combine.cu) combines the S rows and runs
+// it. Slice and pool ids stay global, as in the reference's shard
+// (plan.py:811-815, :995), so S partials combine to the unsharded result.
+//
 // Design: three launches on the caller's stream.
 //   tick_init      slot arrays to the identities of min/max (INT_MAX /
 //                  INT_MIN; 1 / 0 for at-target) and counters to 0.
@@ -234,31 +242,18 @@ int blocks_for(int64_t work, int cap) {
   return (int)(blocks < cap ? blocks : cap);
 }
 
-}  // namespace
-
-// Launches K1 on `stream`. Returns 0, or the first CUDA error code
-// (a refused launch never runs, so each launch is checked at once).
-extern "C" int tcc_fleet_tick(const void* cols, int n, const void* pool_target,
-                              int pb, int num_slots, int now_s, int stale_s,
-                              void* masks, void* agg, void* slots,
-                              void* slice_out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-
-  const int agg_len = kHead + 12 * pb;
-  int32_t* agg_i = static_cast<int32_t*>(agg);
-  int32_t* slots_i = static_cast<int32_t*>(slots);
+// tick_init, then tick_rows when there are rows: the part of K1 that the
+// full tick and a shard's partial share. `agg_len` entries of `agg` start
+// at 0: kHead + 12 * pb for the full tick, kHead + 10 * pb for a partial.
+int launch_init_rows(const void* cols, int n, const void* pool_target, int pb,
+                     int num_slots, int now_s, int stale_s, void* masks,
+                     int32_t* agg, int agg_len, int32_t* slots,
+                     cudaStream_t st, int sms) {
   const int64_t init_work = num_slots > agg_len ? num_slots : agg_len;
   tick_init<<<blocks_for(init_work, 8 * sms), kThreads, 0, st>>>(
-      agg_i, agg_len, slots_i, num_slots);
-  err = cudaGetLastError();
+      agg, agg_len, slots, num_slots);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
   if (n > 0) {
     const size_t smem = sizeof(int32_t) * (kHead + 10 * (size_t)pb);
     if (smem > 48 * 1024) {
@@ -270,13 +265,58 @@ extern "C" int tcc_fleet_tick(const void* cols, int n, const void* pool_target,
     tick_rows<<<blocks_for(n, 8 * sms), kThreads, smem, st>>>(
         static_cast<const int32_t*>(cols), n,
         static_cast<const int32_t*>(pool_target), pb, num_slots, now_s,
-        stale_s, static_cast<uint8_t*>(masks), agg_i, slots_i);
+        stale_s, static_cast<uint8_t*>(masks), agg, slots);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return (int)cudaSuccess;
+}
 
+int multiprocessors(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+}
+
+}  // namespace
+
+// Launches K1 on `stream`. Returns 0, or the first CUDA error code
+// (a refused launch never runs, so each launch is checked at once).
+extern "C" int tcc_fleet_tick(const void* cols, int n, const void* pool_target,
+                              int pb, int num_slots, int now_s, int stale_s,
+                              void* masks, void* agg, void* slots,
+                              void* slice_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  int rc = multiprocessors(&sms);
+  if (rc != 0) return rc;
+  int32_t* agg_i = static_cast<int32_t*>(agg);
+  int32_t* slots_i = static_cast<int32_t*>(slots);
+  rc = launch_init_rows(cols, n, pool_target, pb, num_slots, now_s, stale_s,
+                        masks, agg_i, kHead + 12 * pb, slots_i, st, sms);
+  if (rc != 0) return rc;
   const int64_t epi_work = num_slots > pb ? num_slots : pb;
   tick_epilogue<<<blocks_for(epi_work, 8 * sms), kThreads, 0, st>>>(
       agg_i, pb, slots_i, num_slots, static_cast<uint8_t*>(slice_out));
   return (int)cudaGetLastError();
+}
+
+// Launches K1's partial form on `stream`: one shard's rows, no epilogue.
+// `counts` is int32[kHead + 10 * pb] (the summed head of `agg`), `slots`
+// int32[6, num_slots]; both are the shard's row of the mesh's partial
+// buffers. Returns 0 or the first CUDA error code.
+extern "C" int tcc_fleet_tick_partial(const void* cols, int n,
+                                      const void* pool_target, int pb,
+                                      int num_slots, int now_s, int stale_s,
+                                      void* masks, void* counts, void* slots,
+                                      void* stream) {
+  int sms = 0;
+  int rc = multiprocessors(&sms);
+  if (rc != 0) return rc;
+  return launch_init_rows(cols, n, pool_target, pb, num_slots, now_s, stale_s,
+                          masks, static_cast<int32_t*>(counts),
+                          kHead + 10 * pb, static_cast<int32_t*>(slots),
+                          static_cast<cudaStream_t>(stream), sms);
 }

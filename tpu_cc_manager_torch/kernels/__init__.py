@@ -11,8 +11,9 @@ from typing import Dict
 
 #: launches per kernel wrapper since process start (or the last
 #: :func:`reset_launches`)
-LAUNCHES: Dict[str, int] = {"fleet_tick": 0, "fleet_plan": 0,
-                            "delta_scatter": 0, "probe_add_one": 0}
+LAUNCHES: Dict[str, int] = {"fleet_tick": 0, "fleet_tick_partial": 0,
+                            "fleet_plan": 0, "delta_scatter": 0,
+                            "probe_add_one": 0, "mesh_combine": 0}
 
 
 def reset_launches() -> None:

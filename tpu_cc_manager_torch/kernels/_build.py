@@ -26,7 +26,8 @@ from typing import Dict, List, Optional, Union
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("runtime.cu", "fleet_tick.cu", "delta_scatter.cu", "probe.cu")
+SOURCES = ("runtime.cu", "fleet_tick.cu", "delta_scatter.cu", "probe.cu",
+           "mesh_combine.cu")
 LIB_NAME = "libtpu_cc_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -117,8 +118,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tcc_fleet_tick.argtypes = [p, i, p, i, i, i, i, p, p, p, p, p]
     lib.tcc_fleet_tick.restype = i
-    lib.tcc_delta_scatter.argtypes = [p, i, p, p, i, p]
+    lib.tcc_fleet_tick_partial.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
+    lib.tcc_fleet_tick_partial.restype = i
+    lib.tcc_delta_scatter.argtypes = [p, i, p, p, i, i, p]
     lib.tcc_delta_scatter.restype = i
+    lib.tcc_mesh_combine.argtypes = [p, p, i, i, i, p, p, p]
+    lib.tcc_mesh_combine.restype = i
+    lib.tcc_mesh_sum.argtypes = [p, i, i, p, p]
+    lib.tcc_mesh_sum.restype = i
     lib.tcc_probe_add_one.argtypes = [p, p, ctypes.c_int64, p]
     lib.tcc_probe_add_one.restype = i
     lib.tcc_error_string.argtypes = [i]

@@ -5,7 +5,11 @@ Replaces ``tpu_cc_manager/plan.py::_scatter_fn``'s scatter
 CUDA kernel in ``csrc/delta_scatter.cu``: it writes up to ``kb`` changed
 rows of all 8 columns into the session's resident ``int32[8, nb]`` block
 in place. Index ``nb`` is padding; any index outside ``[0, nb)`` changes
-nothing. The caller guarantees the indices are unique.
+nothing. The caller guarantees the indices are unique. On a mesh each
+shard's block holds the global rows ``[row0, row0 + rows)`` and takes
+only those indices; unlike the reference's shard, which clips a foreign
+index onto its last row (plan.py:1083-1093), every other index is
+dropped, so no shard can overwrite a real update.
 
 Bound on an H100: launch overhead. Every index is read (4 bytes per
 slot) and each live slot's 8 values are read and written (64 bytes):
@@ -54,13 +58,18 @@ def _check(block: torch.Tensor, idx: torch.Tensor,
 
 
 def delta_scatter(block: torch.Tensor, idx: torch.Tensor,
-                  vals: torch.Tensor) -> None:
-    """``block[c, idx[j]] = vals[c, j]`` for every column ``c`` and every
-    ``j`` with ``0 <= idx[j] < nb``, in place. Launches K2 for CUDA
-    tensors, runs :func:`delta_scatter_reference` for CPU tensors."""
+                  vals: torch.Tensor, row0: int = 0) -> None:
+    """``block[c, idx[j] - row0] = vals[c, j]`` for every column ``c`` and
+    every ``j`` with ``row0 <= idx[j] < row0 + rows``, in place (``rows``
+    is the block's width; ``row0`` is 0 for an unsharded block). Launches
+    K2 for CUDA tensors, runs :func:`delta_scatter_reference` for CPU
+    tensors."""
     _check(block, idx, vals)
+    row0 = int(row0)
+    if not 0 <= row0 < 2 ** 31:
+        raise ValueError(f"delta_scatter: row0={row0} is not an int32 >= 0")
     if block.device.type == "cpu":
-        delta_scatter_reference(block, idx, vals)
+        delta_scatter_reference(block, idx, vals, row0)
         return
     if block.device.type != "cuda":
         raise ValueError(f"delta_scatter: no kernel for {block.device}")
@@ -68,14 +77,15 @@ def delta_scatter(block: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(block.device):
         rc = lib.tcc_delta_scatter(
             block.data_ptr(), int(block.shape[1]), idx.data_ptr(),
-            vals.data_ptr(), int(idx.shape[0]),
+            vals.data_ptr(), int(idx.shape[0]), row0,
             torch.cuda.current_stream(block.device).cuda_stream)
     _build.check(rc, "delta_scatter launch")
     LAUNCHES["delta_scatter"] += 1
 
 
 def delta_scatter_reference(block: torch.Tensor, idx: torch.Tensor,
-                            vals: torch.Tensor) -> None:
+                            vals: torch.Tensor, row0: int = 0) -> None:
     """The plain PyTorch version of K2, in place on any device."""
-    ok = (idx >= 0) & (idx < block.shape[1])
-    block[:, idx[ok].long()] = vals[:, ok]
+    local = idx.long() - row0
+    ok = (local >= 0) & (local < block.shape[1])
+    block[:, local[ok]] = vals[:, ok]

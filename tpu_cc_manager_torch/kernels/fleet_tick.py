@@ -13,6 +13,12 @@ grid-stride row pass with shared-memory pool counters and atomic slot
 min/max, epilogue) and the index rules it keeps: the head of
 ``csrc/fleet_tick.cu``. Times on the card: PERF.md.
 
+:func:`fleet_tick_partial` is K1's partial form for one shard of a
+mesh: the row pass over the shard's rows with the global slot and pool
+widths, its raw counts and slot min/max written into the shard's row of
+the mesh's partial buffers, no epilogue. K4 (``kernels/mesh_combine.py``)
+combines the shards' rows.
+
 :func:`fleet_tick_block` and :func:`fleet_plan` launch the kernel for a
 CUDA tensor and run the plain PyTorch version (:func:`fleet_tick_reference`)
 for a CPU tensor; any other device raises. Outputs stay on the input's
@@ -22,7 +28,7 @@ package's keys.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -94,11 +100,13 @@ def _check_block(block: torch.Tensor, pool_target: torch.Tensor,
         raise ValueError(f"fleet_tick: num_slots={num_slots}")
 
 
-def _unpack(masks: torch.Tensor, agg: torch.Tensor,
-            slice_out: torch.Tensor, pb: int) -> Dict[str, torch.Tensor]:
-    out = {key: masks[j] for j, key in enumerate(MASK_KEYS)}
+def unpack_aggregates(agg: torch.Tensor, slice_out: torch.Tensor,
+                      pb: int) -> Dict[str, torch.Tensor]:
+    """The aggregate outputs under their keys, from K1's ``agg``
+    (``int32[12 + 12 * pb]``) and ``slice_out`` (``bool[2, num_slots]``),
+    as K1's and K4's epilogues write them."""
     h = 2 * N_MODES
-    out.update({
+    return {
         "mode_counts": agg[:N_MODES],
         "desired_counts": agg[N_MODES:h],
         "pool_nodes": agg[h:h + pb],
@@ -110,8 +118,21 @@ def _unpack(masks: torch.Tensor, agg: torch.Tensor,
         "pool_divergent": agg[h + 11 * pb:h + 12 * pb],
         "slice_coherent": slice_out[0],
         "slice_half_flipped": slice_out[1],
-    })
+    }
+
+
+def _unpack(masks: torch.Tensor, agg: torch.Tensor,
+            slice_out: torch.Tensor, pb: int) -> Dict[str, torch.Tensor]:
+    out = {key: masks[j] for j, key in enumerate(MASK_KEYS)}
+    out.update(unpack_aggregates(agg, slice_out, pb))
     return out
+
+
+def counts_len(num_pools: int) -> int:
+    """Entries of K1's summed head (the part the rows add into, and a
+    shard's partial counts): the two mode histograms and the pool
+    counters and pool x mode histogram."""
+    return 2 * N_MODES + 10 * num_pools
 
 
 def _launch(block: torch.Tensor, pool_target: torch.Tensor, now_s: int,
@@ -158,6 +179,58 @@ def fleet_tick_block(block: torch.Tensor, pool_target: torch.Tensor,
                   num_slots)
     LAUNCHES["fleet_tick"] += 1
     return out
+
+
+def _check_partial_out(counts: torch.Tensor, slots: torch.Tensor,
+                       device: torch.device, num_pools: int,
+                       num_slots: int) -> None:
+    for name, buf, shape in (("counts", counts, (counts_len(num_pools),)),
+                             ("slots", slots, (6, num_slots))):
+        if (buf.dtype != torch.int32 or tuple(buf.shape) != shape
+                or not buf.is_contiguous() or buf.device != device):
+            raise ValueError(
+                f"fleet_tick_partial: {name} must be a contiguous int32 "
+                f"{list(shape)} tensor on {device}, got {buf.dtype} "
+                f"{tuple(buf.shape)} on {buf.device}")
+
+
+def fleet_tick_partial(block: torch.Tensor, pool_target: torch.Tensor,
+                       now_s: int, stale_after_s: int, *, num_pools: int,
+                       num_slots: int, counts: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+    """K1's partial form over one shard's ``block`` (``int32[8, rows]``,
+    global slice and pool ids): writes the shard's raw counts into
+    ``counts`` (``int32[counts_len(num_pools)]``) and its slot min/max
+    into ``slots`` (``int32[6, num_slots]``), and returns its seven mask
+    rows (``bool[7, rows]``, in ``MASK_KEYS`` order). No epilogue runs.
+    Launches the kernel for a CUDA block, runs
+    :func:`fleet_tick_partial_reference` for a CPU block."""
+    _check_block(block, pool_target, num_pools, num_slots)
+    _check_partial_out(counts, slots, block.device, num_pools, num_slots)
+    now_s = _check_int32(now_s, "now_s")
+    stale_after_s = _check_int32(stale_after_s, "stale_after_s")
+    if block.device.type == "cpu":
+        masks, c, sl = fleet_tick_partial_reference(
+            block, pool_target, now_s, stale_after_s, num_pools=num_pools,
+            num_slots=num_slots)
+        counts.copy_(c)
+        slots.copy_(sl)
+        return masks
+    if block.device.type != "cuda":
+        raise ValueError(f"fleet_tick_partial: no kernel for {block.device}")
+    lib = _build.library()
+    n = int(block.shape[1])
+    masks = torch.empty((len(MASK_KEYS), n), dtype=torch.bool,
+                        device=block.device)
+    with torch.cuda.device(block.device):
+        rc = lib.tcc_fleet_tick_partial(
+            block.data_ptr(), n, pool_target.data_ptr(), num_pools,
+            num_slots, now_s, stale_after_s, masks.data_ptr(),
+            counts.data_ptr(), slots.data_ptr(),
+            torch.cuda.current_stream(block.device).cuda_stream)
+    _build.check(rc, "fleet_tick_partial launch")
+    LAUNCHES["fleet_tick_partial"] += 1
+    return masks
 
 
 def _plan_block(desired: torch.Tensor, observed: torch.Tensor,
@@ -238,12 +311,15 @@ def _seg_reduce(size: int, idx: torch.Tensor, val: torch.Tensor,
                                reduce, include_self=True)
 
 
-def fleet_tick_reference(block: torch.Tensor, pool_target: torch.Tensor,
-                         now_s: int, stale_after_s: int, *, num_pools: int,
-                         num_slots: int) -> Dict[str, torch.Tensor]:
-    """The plain PyTorch version of K1: ``plan.py::fleet_tick`` written
-    with ``index_add_`` and ``scatter_reduce_`` (``amin``/``amax``,
-    ``include_self=True``), on whatever device ``block`` is on."""
+def fleet_tick_partial_reference(
+        block: torch.Tensor, pool_target: torch.Tensor, now_s: int,
+        stale_after_s: int, *, num_pools: int, num_slots: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of K1's partial form: ``plan.py::
+    fleet_tick`` up to its combine, written with ``index_add_`` and
+    ``scatter_reduce_`` (``amin``/``amax``, ``include_self=True``).
+    Returns ``(masks bool[7, n], counts int32[counts_len(num_pools)],
+    slots int32[6, num_slots])`` on ``block``'s device."""
     (desired, observed, slice_ids, pool_ids, taint, doctor, ev_ts,
      valid) = block.unbind(0)
     dev = block.device
@@ -263,44 +339,73 @@ def fleet_tick_reference(block: torch.Tensor, pool_target: torch.Tensor,
     converged = (observed == target) & (desired == target) & known
     eligible = ~converged & is_valid & ~flipping & ~doctor_failing
 
-    pool_nodes = _scatter_add(num_pools, pool_ids, valid)
-    pool_converged = _scatter_add(num_pools, pool_ids, converged)
     # the pool x mode histogram drops a row whose pool OR mode is out of
     # range; an out-of-range flat index does exactly that
     p_safe, p_ok = _scatter_index(pool_ids, num_pools)
     m_safe, m_ok = _scatter_index(observed, N_MODES)
     flat = torch.where(p_ok & m_ok, p_safe * N_MODES + m_safe,
                        torch.full_like(p_safe, num_pools * N_MODES))
-    pool_hist = _scatter_add(num_pools * N_MODES, flat, valid).view(
-        num_pools, N_MODES)
+    counts = torch.cat([
+        _scatter_add(N_MODES, observed, valid),
+        _scatter_add(N_MODES, desired, valid),
+        _scatter_add(num_pools, pool_ids, valid),
+        _scatter_add(num_pools, pool_ids, converged),
+        _scatter_add(num_pools, pool_ids, failed),
+        _scatter_add(num_pools, pool_ids, eligible),
+        _scatter_add(num_pools * N_MODES, flat, valid),
+    ])
 
     at_target = ((observed == desired) & known).to(torch.int32)
-    d_mn = _seg_reduce(num_slots, slice_ids, desired, _INT32_MAX, "amin")
-    d_mx = _seg_reduce(num_slots, slice_ids, desired, _INT32_MIN, "amax")
-    o_mn = _seg_reduce(num_slots, slice_ids, observed, _INT32_MAX, "amin")
-    o_mx = _seg_reduce(num_slots, slice_ids, observed, _INT32_MIN, "amax")
-    at_mn = _seg_reduce(num_slots, slice_ids, at_target, 1, "amin")
-    at_mx = _seg_reduce(num_slots, slice_ids, at_target, 0, "amax")
+    slots = torch.stack([
+        _seg_reduce(num_slots, slice_ids, desired, _INT32_MAX, "amin"),
+        _seg_reduce(num_slots, slice_ids, desired, _INT32_MIN, "amax"),
+        _seg_reduce(num_slots, slice_ids, observed, _INT32_MAX, "amin"),
+        _seg_reduce(num_slots, slice_ids, observed, _INT32_MIN, "amax"),
+        _seg_reduce(num_slots, slice_ids, at_target, 1, "amin"),
+        _seg_reduce(num_slots, slice_ids, at_target, 0, "amax"),
+    ])
+    masks = torch.stack([needs_flip, failed, flipping, doctor_failing,
+                         doctor_unreported, stale_evidence, eligible])
+    return masks, counts, slots
 
+
+def epilogue_reference(counts: torch.Tensor, slots: torch.Tensor,
+                       num_pools: int) -> Dict[str, torch.Tensor]:
+    """K1's epilogue in plain PyTorch, over the summed ``counts``
+    (``int32[counts_len(num_pools)]``) and the reduced ``slots``
+    (``int32[6, num_slots]``): the aggregates under their keys, with
+    ``pool_skew``, ``pool_divergent`` and the two slice verdicts."""
+    h, pb = 2 * N_MODES, num_pools
+    pool_nodes = counts[h:h + pb]
+    pool_converged = counts[h + pb:h + 2 * pb]
+    pool_hist = counts[h + 4 * pb:h + 10 * pb].view(pb, N_MODES)
+    d_mn, d_mx, o_mn, o_mx, at_mn, at_mx = slots.unbind(0)
     return {
-        "needs_flip": needs_flip,
-        "failed": failed,
-        "flipping": flipping,
-        "doctor_failing": doctor_failing,
-        "doctor_unreported": doctor_unreported,
-        "stale_evidence": stale_evidence,
-        "eligible": eligible,
-        "mode_counts": _scatter_add(N_MODES, observed, valid),
-        "desired_counts": _scatter_add(N_MODES, desired, valid),
+        "mode_counts": counts[:N_MODES],
+        "desired_counts": counts[N_MODES:h],
         "pool_nodes": pool_nodes,
         "pool_converged": pool_converged,
-        "pool_failed": _scatter_add(num_pools, pool_ids, failed),
-        "pool_eligible": _scatter_add(num_pools, pool_ids, eligible),
+        "pool_failed": counts[h + 2 * pb:h + 3 * pb],
+        "pool_eligible": counts[h + 3 * pb:h + 4 * pb],
         "pool_skew": pool_nodes - pool_hist.amax(dim=1),
         "pool_divergent": pool_nodes - pool_converged,
         "slice_coherent": (d_mn == d_mx) & (o_mn == o_mx),
         "slice_half_flipped": (d_mn == d_mx) & (at_mn == 0) & (at_mx == 1),
     }
+
+
+def fleet_tick_reference(block: torch.Tensor, pool_target: torch.Tensor,
+                         now_s: int, stale_after_s: int, *, num_pools: int,
+                         num_slots: int) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch version of K1: :func:`fleet_tick_partial_reference`
+    over every row, then :func:`epilogue_reference`, on whatever device
+    ``block`` is on."""
+    masks, counts, slots = fleet_tick_partial_reference(
+        block, pool_target, now_s, stale_after_s, num_pools=num_pools,
+        num_slots=num_slots)
+    out = {key: masks[j] for j, key in enumerate(MASK_KEYS)}
+    out.update(epilogue_reference(counts, slots, num_pools))
+    return out
 
 
 def fleet_plan_reference(desired: torch.Tensor, observed: torch.Tensor,

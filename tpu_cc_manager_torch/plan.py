@@ -17,8 +17,14 @@ The device side is rewritten:
   AND policy questions per tick. ``fleet_plan``, the legacy subset, is
   the same kernel with every row valid and one pool (K3).
 - **Resident block**: :class:`TickSession` keeps the eight columns as
-  one ``int32[8, nb]`` tensor on the device and writes changed rows into
-  it in place with K2 (``kernels/delta_scatter.py``).
+  ``int32[8, nb]`` tensors on the device and writes changed rows into
+  them in place with K2 (``kernels/delta_scatter.py``).
+- **Mesh** (:func:`_planner_mesh`): the rows split into S shards, the
+  counterpart of the reference's ``shard_map`` mesh. One process drives
+  every shard: each runs K1's partial form, and the hand-written kernel
+  K4 (``kernels/mesh_combine.py``) combines the partials on shard 0's
+  card where the reference's ``psum``/``pmin``/``pmax`` do. S = 1
+  (``TPU_CC_PLANNER_MESH`` unset) is the unsharded K1.
 - **Device** (:func:`_planner_device`): ``cuda:0`` unless the caller asks
   for the CPU (``device=`` on the entry points, or ``TPU_CC_TORCH_DEVICE``),
   where the kernels' plain PyTorch versions run. With no CUDA device and
@@ -52,9 +58,12 @@ from tpu_cc_manager_torch.kernels import _build
 from tpu_cc_manager_torch.kernels.delta_scatter import delta_scatter
 from tpu_cc_manager_torch.kernels.fleet_tick import (  # noqa: F401
     check_pool_slots,
+    counts_len,
     fleet_plan,  # K3, exported here as the reference's plan module does
     fleet_tick_block,
+    fleet_tick_partial,
 )
+from tpu_cc_manager_torch.kernels.mesh_combine import mesh_combine
 
 #: Mode → code, derived from the canonical vocabulary in modes.py so the
 #: planner cannot drift when modes are added. UNKNOWN covers absent or
@@ -733,14 +742,56 @@ def _planner_device(device: Union[None, str, torch.device] = None
     return dev
 
 
+#: the number of shards the planner splits a block into; unset (or 0),
+#: one. Unlike the reference's variable of the same name, which caps the
+#: planner platform's device list, this sets the shard count itself
+MESH_ENV = "TPU_CC_PLANNER_MESH"
+
+
+def _planner_mesh(device: Union[None, str, torch.device] = None
+                  ) -> Tuple[torch.device, ...]:
+    """The planner's mesh: one device per shard, the counterpart of the
+    reference's ``_planner_devices`` (its 1-D ``pool`` mesh). The shard
+    count S is ``$TPU_CC_PLANNER_MESH`` when set, else 1: the mesh is
+    opt-in, as the reference's is (its planner platform defaults to the
+    host CPU, one device), and on one card or several a sharded tick
+    costs more device time than the unsharded K1. S is rounded down to a
+    power of two, so it divides every power-of-two node bucket, and
+    clamped to ``BUCKET_MIN_NODES``, so the smallest bucket still gives
+    each shard a row. Shard 0 sits on the planner's device
+    (:func:`_planner_device`) and shard i on card ``(index + i) %
+    cards``: shards beyond the card count share cards, as the
+    reference's tests share one host CPU among 8 virtual devices. With no
+    variable, S = 1 and the tick is the unsharded K1."""
+    dev = _planner_device(device)
+    try:
+        want = int(os.environ.get(MESH_ENV, "0"))
+    except ValueError:
+        want = 0
+    shards = min(1 << (max(want, 1).bit_length() - 1), BUCKET_MIN_NODES)
+    return _shard_devices(dev, shards)
+
+
+def _shard_devices(dev: torch.device, shards: int
+                   ) -> Tuple[torch.device, ...]:
+    """``shards`` shard devices from ``dev``: shard i on card
+    ``(dev.index + i) % cards`` for a card, every shard on the CPU for
+    the CPU."""
+    if dev.type != "cuda" or shards == 1:
+        return (dev,) * shards
+    cards = torch.cuda.device_count()
+    return tuple(torch.device("cuda", (dev.index + i) % cards)
+                 for i in range(shards))
+
+
 _TICK_LOCK = threading.Lock()
 
 #: ONE planner dispatch in flight at a time, process-wide — the
 #: reference's scope, kept: a dispatch uploads, launches and reads its
-#: outputs back before the next one may touch a resident block, and the
-#: multi-GPU combines still to come are collectives, which must not be
-#: issued from several host threads at once. Ticks are ms-scale
-#: whole-fleet batch ops; serializing them costs nothing.
+#: outputs back before the next one may touch a resident block, and a
+#: sharded tick's partials, peer copies and combine must not interleave
+#: with another thread's. Ticks are ms-scale whole-fleet batch ops;
+#: serializing them costs nothing.
 _DISPATCH_LOCK = threading.Lock()
 
 
@@ -760,27 +811,107 @@ def columns_to_block(columns: Dict[str, np.ndarray],
     """Snapshot columns (a ``FleetSnapshot.columns``-shaped dict of
     numpy arrays — the reference's as well as this module's) → the
     ``int32[8, nb]`` block in ``COLS_ORDER`` on ``device``: one upload."""
+    return columns_to_shards(columns, (torch.device(device),))[0]
+
+
+def columns_to_shards(columns: Dict[str, np.ndarray],
+                      mesh: Sequence[torch.device]) -> List[torch.Tensor]:
+    """Snapshot columns → one contiguous ``int32[8, nb / S]`` block per
+    shard of ``mesh``, shard i holding the global rows ``[i * nb / S,
+    (i + 1) * nb / S)`` on ``mesh[i]``: one upload per shard."""
     host = np.stack([np.asarray(columns[key], np.int32)
                      for key in COLS_ORDER])
-    return torch.from_numpy(host).to(device)
+    rows = host.shape[1] // len(mesh)
+    return [torch.from_numpy(np.ascontiguousarray(
+        host[:, i * rows:(i + 1) * rows])).to(dev)
+        for i, dev in enumerate(mesh)]
 
 
 def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {key: val.cpu().numpy() for key, val in out.items()}
 
 
-_EVAL_CACHE: Dict[Tuple[int, int, str], Callable[..., Any]] = {}
-_SCATTER_CACHE: Dict[Tuple[int, int, str], Callable[..., Any]] = {}
+#: when set, ``_mesh_tick`` calls ``MESH_MARK(stage, cards)`` at its
+#: stage boundaries ("start", "partials", "copies", "combine") with the
+#: cards its shards sit on, so a caller can time the path's own parts
+#: (CUDA events on each card's stream); None on the path users run
+MESH_MARK: Optional[Callable[[str, Tuple[torch.device, ...]], None]] = None
 
 
-def _eval_fn(nb: int, pb: int,
-             device: torch.device) -> Callable[..., Dict[str, np.ndarray]]:
-    """The tick for one (node-bucket, pool-bucket) geometry over a block
-    already on ``device``: K1 over all ``nb`` rows with ``nb`` slice
-    slots and ``pb`` pool slots, outputs fetched to the host. Built once
-    per geometry and cached; a pool bucket the kernel's shared memory
-    cannot hold raises here, before any launch."""
-    key = (nb, pb, str(device))
+def _mesh_tick(shards: Sequence[torch.Tensor], pool_target: torch.Tensor,
+               now_s: int, stale_s: int, nb: int,
+               pb: int) -> Dict[str, np.ndarray]:
+    """The sharded tick over S > 1 shard blocks (caller holds
+    ``_DISPATCH_LOCK``): K1's partial form on every shard, into its row
+    of the partial buffers on shard 0's card or, for a shard on another
+    card, into buffers on that card; then the peer copies of those into
+    their rows; then one K4 there and the host fetch. Every shard
+    scatters into full-width slots with global ids, as the reference's
+    shard does.
+
+    The order is by events: a cross-card ``copy_`` runs on the source
+    card's stream after an event from the root card's stream, and the
+    root's stream waits on an event recorded after the copy, so K4 reads
+    only partials that have landed. Every partial is launched before any
+    copy: a copy between two partials would hold the root card's later
+    partials behind it."""
+    root = shards[0].device
+    cards = tuple(dict.fromkeys(block.device for block in shards))
+    # the upload waits for the card; the marks time the device work after
+    targets = {dev: pool_target.to(dev) for dev in cards}
+    mark = MESH_MARK
+    if mark is not None:
+        mark("start", cards)
+    n_shards = len(shards)
+    counts = torch.empty((n_shards, counts_len(pb)), dtype=torch.int32,
+                         device=root)
+    slots = torch.empty((n_shards, 6, nb), dtype=torch.int32, device=root)
+    masks, peers = [], []
+    for i, block in enumerate(shards):
+        dev = block.device
+        if dev == root:
+            c_i, s_i = counts[i], slots[i]
+        else:
+            c_i = torch.empty(counts_len(pb), dtype=torch.int32, device=dev)
+            s_i = torch.empty((6, nb), dtype=torch.int32, device=dev)
+            peers.append((i, c_i, s_i))
+        masks.append(fleet_tick_partial(
+            block, targets[dev], now_s, stale_s, num_pools=pb,
+            num_slots=nb, counts=c_i, slots=s_i))
+    if mark is not None:
+        mark("partials", cards)
+    for i, c_i, s_i in peers:
+        counts[i].copy_(c_i)
+        slots[i].copy_(s_i)
+    if mark is not None:
+        mark("copies", cards)
+    combined = mesh_combine(counts, slots, num_pools=pb)
+    if mark is not None:
+        mark("combine", cards)
+    out = _to_host(combined)
+    host_masks = np.concatenate([m.cpu().numpy() for m in masks], axis=1)
+    for j, key in enumerate(_NODE_OUT_KEYS):
+        out[key] = host_masks[j]
+    return out
+
+
+_EVAL_CACHE: Dict[Tuple[int, int, Tuple[torch.device, ...]],
+                  Callable[..., Any]] = {}
+_SCATTER_CACHE: Dict[Tuple[int, int, Tuple[torch.device, ...]],
+                     Callable[..., Any]] = {}
+
+
+def _eval_fn(nb: int, pb: int, mesh: Sequence[torch.device]
+             ) -> Callable[..., Dict[str, np.ndarray]]:
+    """The tick for one (node-bucket, pool-bucket) geometry on ``mesh``
+    (:func:`_planner_mesh`) over shard blocks already in place: K1 over
+    all ``nb`` rows with ``nb`` slice slots and ``pb`` pool slots —
+    unsharded for one shard, K1's partials and K4 for more — outputs
+    fetched to the host. Built once per geometry and cached; a pool
+    bucket the kernel's shared memory cannot hold raises here, before
+    any launch."""
+    mesh = tuple(mesh)
+    key = (nb, pb, mesh)
     with _TICK_LOCK:
         fn = _EVAL_CACHE.get(key)
         if fn is not None:
@@ -788,61 +919,79 @@ def _eval_fn(nb: int, pb: int,
         check_pool_slots(pb)
         _count_trace("fleet_tick")
 
-        def run(block: torch.Tensor, pool_target: np.ndarray, now_s: int,
-                stale_s: int) -> Dict[str, np.ndarray]:
+        def run(shards: Sequence[torch.Tensor], pool_target: np.ndarray,
+                now_s: int, stale_s: int) -> Dict[str, np.ndarray]:
+            if len(shards) != len(mesh):
+                raise ValueError(
+                    f"tick over {len(shards)} shard block(s) on a "
+                    f"{len(mesh)}-shard mesh")
             # host-side prep BEFORE the lock: _DISPATCH_LOCK is held for
             # dispatch only
             pt_host = torch.from_numpy(
                 np.array(pool_target, np.int32, copy=True))
             with _DISPATCH_LOCK:
-                out = fleet_tick_block(
-                    block, pt_host.to(block.device), int(now_s),
-                    int(stale_s), num_pools=pb, num_slots=nb)
-                return _to_host(out)
+                if len(shards) == 1:
+                    block = shards[0]
+                    return _to_host(fleet_tick_block(
+                        block, pt_host.to(block.device), int(now_s),
+                        int(stale_s), num_pools=pb, num_slots=nb))
+                return _mesh_tick(shards, pt_host, int(now_s),
+                                  int(stale_s), nb, pb)
 
         _EVAL_CACHE[key] = run
         return run
 
 
-def _tick_fn(nb: int, pb: int,
-             device: torch.device) -> Callable[..., Dict[str, np.ndarray]]:
+def _tick_fn(nb: int, pb: int, mesh: Sequence[torch.device]
+             ) -> Callable[..., Dict[str, np.ndarray]]:
     """The upload-per-call tick (the legacy path): host columns in,
-    host outputs out, over :func:`_eval_fn`'s geometry."""
-    evalf = _eval_fn(nb, pb, device)
+    host outputs out, over :func:`_eval_fn`'s geometry and mesh."""
+    evalf = _eval_fn(nb, pb, mesh)
 
     def run(columns: Dict[str, np.ndarray],
             pool_target: np.ndarray) -> Dict[str, np.ndarray]:
         now_s = int(time.time())
         stale_s = int(_stale_after_s())
         with _DISPATCH_LOCK:
-            block = columns_to_block(columns, device)
-        return evalf(block, pool_target, now_s, stale_s)
+            shards = columns_to_shards(columns, mesh)
+        return evalf(shards, pool_target, now_s, stale_s)
 
     return run
 
 
 def _scatter_fn(nb: int, kb: int,
-                device: torch.device) -> Callable[..., None]:
-    """The delta scatter for one (node-bucket, delta-bucket) geometry:
-    uploads the ``kb``-sized operands and writes up to ``kb`` updated
-    rows into the device-resident block in place (K2). Padding entries
-    carry index ``nb`` and change nothing. Built once per geometry and
-    cached, like :func:`_eval_fn`."""
-    key = (nb, kb, str(device))
+                mesh: Sequence[torch.device]) -> Callable[..., None]:
+    """The delta scatter for one (node-bucket, delta-bucket) geometry on
+    ``mesh``: uploads the ``kb``-sized operands once per card and writes
+    up to ``kb`` updated rows into the resident shard blocks in place,
+    one K2 launch per shard, each taking only the rows it holds. Padding
+    entries carry index ``nb`` and change nothing. Built once per
+    geometry and cached, like :func:`_eval_fn`."""
+    mesh = tuple(mesh)
+    key = (nb, kb, mesh)
+    rows = nb // len(mesh)
     with _TICK_LOCK:
         fn = _SCATTER_CACHE.get(key)
         if fn is not None:
             return fn
         _count_trace("delta_scatter")
 
-        def run(block: torch.Tensor, idx: np.ndarray,
+        def run(shards: Sequence[torch.Tensor], idx: np.ndarray,
                 vals: np.ndarray) -> None:
+            if len(shards) != len(mesh):
+                raise ValueError(
+                    f"scatter into {len(shards)} shard block(s) on a "
+                    f"{len(mesh)}-shard mesh")
             idx_host = torch.from_numpy(np.array(idx, np.int32, copy=True))
             vals_host = torch.from_numpy(
                 np.array(vals, np.int32, copy=True))
             with _DISPATCH_LOCK:
-                delta_scatter(block, idx_host.to(block.device),
-                              vals_host.to(block.device))
+                operands: Dict[torch.device, tuple] = {}
+                for i, block in enumerate(shards):
+                    dev = block.device
+                    if dev not in operands:
+                        operands[dev] = (idx_host.to(dev), vals_host.to(dev))
+                    delta_scatter(block, *operands[dev], row0=i * rows)
 
         _SCATTER_CACHE[key] = run
         return run
@@ -939,22 +1088,24 @@ class TickSession:
     """Delta-driven, device-resident planner tick state
     (docs/planner.md "incremental tick contract").
 
-    Owns the device-resident block (the eight fleet_tick columns as one
-    ``int32[8, nb]`` tensor) plus a host mirror and incrementally
+    Owns the device-resident block (the eight fleet_tick columns, as one
+    ``int32[8, nb / S]`` tensor per shard of the planner's mesh,
+    :func:`_planner_mesh`) plus a host mirror and incrementally
     maintained outputs. Per tick:
 
     - drain the encoding's dirty state
       (:meth:`FleetEncoding.begin_tick`),
-    - scatter the changed rows into the device block in place
+    - scatter the changed rows into the shard blocks in place
       (:func:`_scatter_fn`, kernel K2 — the columns never round-trip
       host↔device between ticks),
     - fold the changed rows' old→new contributions into the cached
       aggregates and re-evaluate exactly the dirty slice slots against
       the host mirror,
     - every ``full_every`` ticks (and on ``force_full``) ALSO run the
-      full device kernel (:func:`_eval_fn`, K1) over the resident block
-      and compare every output array against the incremental state —
-      any divergence raises :class:`IncrementalDriftError`.
+      full device tick (:func:`_eval_fn`: K1, or K1's partials and K4
+      on a mesh) over the resident shards and compare every output
+      array against the incremental state — any divergence raises
+      :class:`IncrementalDriftError`.
 
     ``now`` is frozen between full ticks so unchanged rows'
     stale_evidence masks stay consistent with changed rows'; each full
@@ -962,8 +1113,9 @@ class TickSession:
     triggers: bucket change, slice-id compaction, a delta covering a
     quarter of the block, a dispatch error, an empty fleet.
 
-    ``device`` places the block (:func:`_planner_device`: ``cuda:0``
-    unless the caller or ``TPU_CC_TORCH_DEVICE`` asks for another)."""
+    ``device`` places shard 0 (:func:`_planner_device`: ``cuda:0``
+    unless the caller or ``TPU_CC_TORCH_DEVICE`` asks for another); the
+    mesh, read once when the session is made, places the others."""
 
     def __init__(self, *, full_every: Optional[int] = None,
                  device: Union[None, str, torch.device] = None) -> None:
@@ -980,10 +1132,14 @@ class TickSession:
         #: session geometry
         self.node_bucket: Optional[int] = None
         self.pool_bucket = BUCKET_MIN_POOLS
-        #: where the resident block lives
+        #: where the resident block's shard 0 lives
         self.device = _planner_device(device)
-        #: the resident block, int32[8, node_bucket] in COLS_ORDER
-        self._cols: Optional[torch.Tensor] = None
+        #: one device per shard (:func:`_planner_mesh`), fixed for the
+        #: session's life
+        self.mesh = _planner_mesh(self.device)
+        #: the resident block, one int32[8, node_bucket / S] tensor per
+        #: shard of the mesh, in COLS_ORDER, in row order
+        self._shards: Optional[List[torch.Tensor]] = None
         self._mirror: Optional[Dict[str, np.ndarray]] = None
         self._state: Optional[Dict[str, np.ndarray]] = None
         self._pool_hist: Optional[np.ndarray] = None
@@ -1008,12 +1164,12 @@ class TickSession:
 
     # -------------------------------------------------------- lifecycle
     def invalidate(self) -> None:
-        """Drop the device block; the next tick rebuilds from truth."""
+        """Drop the device shards; the next tick rebuilds from truth."""
         with self._lock:
             self._invalidate_locked()
 
     def _invalidate_locked(self) -> None:
-        self._cols = None
+        self._shards = None
         self._mirror = None
         self._state = None
         self._pool_hist = None
@@ -1036,7 +1192,7 @@ class TickSession:
             if pb != self.pool_bucket:
                 self.pool_bucket = pb
                 self._invalidate_locked()
-            elif self._cols is not None:
+            elif self._shards is not None:
                 old_rows = self._pool_rows
                 m = min(old_rows.size, pool_rows.size)
                 if m:
@@ -1082,7 +1238,7 @@ class TickSession:
                      with_meta: bool) -> TickResult:
         delta = enc.begin_tick(
             session_bucket=(self.node_bucket
-                            if self._cols is not None else None),
+                            if self._shards is not None else None),
             with_meta=with_meta,
         )
         meta = delta.meta
@@ -1139,18 +1295,18 @@ class TickSession:
         n = delta.n
         cols_host = {key: snap.columns[key] for key in COLS_ORDER}
         cols_host["pool_ids"] = self._pool_padded(nb, n)
-        evalf = _eval_fn(nb, pb, self.device)
+        evalf = _eval_fn(nb, pb, self.mesh)
         now_s = int(time.time())
         stale_s = int(_stale_after_s())
         with _DISPATCH_LOCK:
-            block = columns_to_block(cols_host, self.device)
+            shards = columns_to_shards(cols_host, self.mesh)
         self.stats["column_puts"] += len(COLS_ORDER)
         try:
-            out = evalf(block, self._pool_target, now_s, stale_s)
+            out = evalf(shards, self._pool_target, now_s, stale_s)
         except Exception:
             self._invalidate_locked()
             raise
-        self._cols = block
+        self._shards = shards
         self.node_bucket = nb
         self._n = n
         self._now_s = now_s
@@ -1240,12 +1396,12 @@ class TickSession:
         vals8 = np.zeros((8, kb), np.int32)
         for j, key in enumerate(COLS_ORDER):
             vals8[j, :k] = new_vals[key]
-        scatter = _scatter_fn(nb, kb, self.device)
-        # K2 writes the rows into the resident block in place: the
+        scatter = _scatter_fn(nb, kb, self.mesh)
+        # K2 writes the rows into the resident shards in place: the
         # reference donates the block to its scatter program
         # (donate_argnums) for the same end, no second copy of it
         try:
-            scatter(self._cols, idx, vals8)
+            scatter(self._shards, idx, vals8)
         except Exception:
             self._invalidate_locked()
             raise
@@ -1294,9 +1450,9 @@ class TickSession:
     def _verify_locked(self) -> None:
         nb = self.node_bucket
         pb = self.pool_bucket
-        evalf = _eval_fn(nb, pb, self.device)
+        evalf = _eval_fn(nb, pb, self.mesh)
         try:
-            out = evalf(self._cols, self._pool_target,
+            out = evalf(self._shards, self._pool_target,
                         self._now_s, self._stale_s)
         except Exception:
             self._invalidate_locked()
@@ -1400,17 +1556,18 @@ def warmup(max_nodes: Optional[int] = None,
             ladder.append(ladder[-1] * 2)
         pool_buckets = ladder
     dev = _planner_device(device)
+    mesh = _planner_mesh(dev)
     configure_cache()
     timings: Dict[str, float] = {}
     nb = BUCKET_MIN_NODES
     while True:
         for pb in pool_buckets:
             t0 = time.monotonic()
-            evalf = _eval_fn(nb, pb, dev)
+            evalf = _eval_fn(nb, pb, mesh)
+            zeros = {key: np.zeros(nb, np.int32) for key in COLS_ORDER}
             with _DISPATCH_LOCK:
-                block = torch.zeros((len(COLS_ORDER), nb),
-                                    dtype=torch.int32, device=dev)
-            evalf(block, np.zeros(pb, np.int32), 0, 0)
+                shards = columns_to_shards(zeros, mesh)
+            evalf(shards, np.zeros(pb, np.int32), 0, 0)
             timings[f"n{nb}p{pb}"] = round(time.monotonic() - t0, 4)
         if nb >= bucket_nodes(max_nodes):
             break
@@ -1516,7 +1673,7 @@ def analyze_encoding(enc: FleetEncoding,
     if n == 0:
         return _empty_report()
     nb = snap.bucket
-    out = _tick_fn(nb, BUCKET_MIN_POOLS, dev)(
+    out = _tick_fn(nb, BUCKET_MIN_POOLS, _planner_mesh(dev))(
         snap.columns, np.zeros(BUCKET_MIN_POOLS, np.int32)
     )
     return _format_report(n, snap.names, snap.slice_index,
@@ -1606,7 +1763,7 @@ def analyze_pools(
     pool_target = np.zeros(pb, np.int32)
     pool_target[: len(targets)] = targets
     nb = snap.bucket
-    out = _tick_fn(nb, pb, dev)(snap.columns, pool_target)
+    out = _tick_fn(nb, pb, _planner_mesh(dev))(snap.columns, pool_target)
     return _pool_result(pools, out)
 
 
@@ -1649,27 +1806,26 @@ def _analyze_pools_session(
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """CLI: ``python -m tpu_cc_manager_torch.plan --from-file nodes.json``
-    — fleet report from an offline NodeList dump, planned on the GPU
-    (``TPU_CC_TORCH_DEVICE=cpu`` plans on the CPU). The live API path
-    (``--kubeconfig``) arrives with the port's Kubernetes client."""
+    """CLI: ``python -m tpu_cc_manager_torch.plan`` — fleet report from a
+    live API server (or --from-file for an offline node dump), planned on
+    the GPU (``TPU_CC_TORCH_DEVICE=cpu`` plans on the CPU)."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="tpu-cc-fleet-plan")
-    ap.add_argument("--kubeconfig", default=None,
-                    help="live API server: not available in the PyTorch "
-                         "port yet (use --from-file)")
+    ap.add_argument("--kubeconfig", default=None)
     ap.add_argument("--from-file", default=None,
                     help="JSON file with a NodeList (offline analysis)")
+    ap.add_argument("--selector", default=L.TPU_ACCELERATOR_LABEL,
+                    help="label selector for TPU nodes")
     args = ap.parse_args(argv)
-    if args.kubeconfig or not args.from_file:
-        print("tpu-cc-fleet-plan: the live API path (--kubeconfig) "
-              "arrives with the k8s client slice of the PyTorch port "
-              "(ROADMAP.md, Queue 1); pass --from-file with a NodeList "
-              "dump", file=sys.stderr)
-        return 2
-    with open(args.from_file) as f:
-        nodes = json.load(f).get("items", [])
+    if args.from_file:
+        with open(args.from_file) as f:
+            nodes = json.load(f).get("items", [])
+    else:
+        from tpu_cc_manager_torch.k8s.client import HttpKubeClient, KubeConfig
+
+        kube = HttpKubeClient(KubeConfig.load(args.kubeconfig))
+        nodes = kube.list_nodes(args.selector)
     print(json.dumps(analyze_fleet(nodes), indent=2, sort_keys=True))
     return 0
 
