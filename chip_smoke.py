@@ -5,13 +5,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
 exits non-zero without them, and whenever any phase fails.
 
-1. Build: the CUDA kernels compile from ``tpu_cc_manager_torch/csrc``.
+1. Build: the CUDA kernels compile from ``tpu_cc_manager_torch/csrc``;
+   the launch floor (one empty kernel through the same ctypes route,
+   timed like every kernel).
 2. Kernels against their plain PyTorch versions, on the card, at the
-   shapes the main path gives them (K1 ``fleet_tick`` at 131,072 and
-   1,048,576 rows, K2 ``delta_scatter`` at 64 and 16,384 delta slots, K3
-   ``fleet_plan`` at ``graft_entry.entry()``'s shapes) plus a padded fleet
-   with empty slots and out-of-range indices. Every output must be equal;
-   each is timed with CUDA events (median of 25 after warm-up).
+   shapes the main path gives them: K1 ``fleet_tick`` at 131,072 and
+   1,048,576 rows (the 100k bucket pads 24 % of its rows onto slot
+   nb - 1), a padded fleet with empty slots, out-of-range indices, every
+   row in one slot, every row in one pool, a 1M bucket padded at 24 %,
+   131,071 rows and a block at a 4-byte storage offset (the row pass's
+   scalar path); K3 ``fleet_plan`` at ``graft_entry.entry()``'s shape and
+   at 257, 258 and 259 rows; K1's partial form on the first (unpadded)
+   and the last (padded) of 8 shards of 1,048,576 rows with hostile slice
+   ids and K4 ``mesh_combine`` over the 8 partials; K2 ``delta_scatter``
+   at 64 and 16,384 delta slots. Every output must be equal; each is
+   timed with CUDA events (median of 25 after warm-up), and K1's and its
+   partial form's launches one by one with ``torch.profiler`` (the
+   ``k1_split`` line).
 3. Main path at 100,000 nodes: the CLI (``plan.main --from-file``) on a
    seeded NodeList, then ``analyze_pools`` over 8 pools with a
    ``PoolScanScratch``, twice; every report is checked against a numpy
@@ -33,14 +43,11 @@ exits non-zero without them, and whenever any phase fails.
    per flip; then phase 4's session ticks to the same outputs as before
    the resets. The mode store lives in a temporary directory, and
    ``/dev/nvidia*`` keeps its permission bits.
-8. The mesh (``TPU_CC_PLANNER_MESH``): (a) K1's partial form and K4
-   ``mesh_combine`` against their plain versions at S = 8 shards,
-   1,048,576 slots, pb = 8, on partials from a seeded K1-partial pass
-   with hostile slice ids and slots no shard touches, bit-equal, timed
-   beside K4's byte bound and the library's ``sum``/``amin``/``amax``;
-   K2 on each of the 8 shard blocks (row offset, shard width) at 16,384
-   delta slots with every shard's edge rows and padding, and K3 at the
-   dry run's per-shard shape, each bit-equal to its plain version;
+8. The mesh (``TPU_CC_PLANNER_MESH``): (a) K2 on each of the 8 shard
+   blocks (row offset, shard width) at 16,384 delta slots with every
+   shard's edge rows and padding, and K3 at the dry run's per-shard
+   shape, each bit-equal to its plain version (K1's partial form and K4
+   are held in phase 2);
    (b) phase 4's 1M-row session at 1 % deltas on 8 shards on ``cuda:0``
    (rebuild, three incremental ticks, a forced full tick), every output
    array equal to the 1-shard session's, with the device time of the
@@ -54,6 +61,8 @@ exits non-zero without them, and whenever any phase fails.
    (e) with two cards or more, (b) again at 2 shards per card over every
    card.
 
+``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K3, K1-partial
+and K4 work alone, to compare two versions of K1 within one chip call.
 ``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
@@ -223,6 +232,56 @@ def k1_bound_ms(n: int, pb: int, slots: int, rate: float) -> Tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+#: K1's launches, by their kernel names in csrc/fleet_tick.cu
+K1_LAUNCH_NAMES = ("tick_init", "tick_rows", "tick_epilogue")
+
+
+def launch_split(fn: Callable[[], Any]) -> Dict[str, Any]:
+    """Device ms per call of ``fn`` for each of K1's launches, from
+    ``torch.profiler``'s CUDA activity over REPS calls after warm-up,
+    with the launches per call. Empty when the profiler saw no device
+    time (the caller then reports the split as not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARM):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    split: Dict[str, Any] = {}
+    for evt in prof.key_averages():
+        name = next((k for k in K1_LAUNCH_NAMES if k in evt.key), None)
+        total_us = getattr(evt, "device_time_total", 0.0)
+        if name is None or not total_us:
+            continue
+        split[f"{name}_ms"] = split.get(f"{name}_ms", 0.0) + (
+            total_us / 1e3 / REPS)
+        split[f"{name}_launches"] = split.get(f"{name}_launches", 0) + (
+            evt.count / REPS)
+    if split:
+        split["sum_ms"] = sum(v for k, v in split.items()
+                              if k.endswith("_ms"))
+    return split
+
+
+def device_block(cols: np.ndarray, offset: int = 0) -> torch.Tensor:
+    """``cols`` on the card as a contiguous block that starts ``offset``
+    int32 into its storage: offset 1 leaves the block 4-byte aligned
+    only, which sends K1's row pass down its scalar path."""
+    buf = torch.empty(cols.size + offset, dtype=torch.int32, device=DEVICE)
+    block = buf[offset:].view(cols.shape)
+    block.copy_(torch.from_numpy(cols))
+    return block
+
+
+#: the K1 cases whose launches are timed one by one (the main path's
+#: shapes)
+K1_SPLIT_CASES = ("nb1048576_pb8", "nb131072_pb8", "nb131072_pb16")
+
+
 def check_k1(rate: float) -> List[dict]:
     from tpu_cc_manager_torch.kernels.fleet_tick import (
         fleet_tick_block, fleet_tick_reference)
@@ -230,33 +289,55 @@ def check_k1(rate: float) -> List[dict]:
 
     now, stale = int(time.time()), 3600
     fleet_nb = bucket_nodes(FLEET_NODES)
+    session_nb = bucket_nodes(SESSION_NODES)
     pool_pb = bucket_pools(N_POOLS)
     on = MODE_CODES["on"]
+    # the contention cases: every row in slot 0; every row live and in
+    # pool 5; a snapshot that pads 24 % of a 1M bucket onto slot nb - 1
+    one_slot = bench_columns(SESSION_NODES, session_nb, 1, 8, now, 7)
+    one_slot[2] = 0
+    one_pool = bench_columns(session_nb, session_nb, 1, 8, now, 8)
+    one_pool[3] = 5
+    padded = bench_columns(session_nb * 76 // 100, session_nb, 1, 8, now, 9)
     cases = [
-        # (name, block, pool targets): the legacy fleet tick at 100k, the
+        # (name, block, pool targets, storage offset): the legacy fleet
+        # tick at 100k (24 % padding rows on slot nb - 1, valid 0), the
         # 8-pool policy scan, the 1M session geometry, a padded fleet with
-        # every other slot empty, out-of-range codes and indices
+        # every other slot empty, out-of-range codes and indices, the
+        # contention cases, a row count that is not a multiple of 4, and
+        # the 100k block at a 4-byte storage offset
         (f"nb{fleet_nb}_pb8",
          bench_columns(FLEET_NODES, fleet_nb, 1, 8, now, 1),
-         np.zeros(8, np.int32)),
+         np.zeros(8, np.int32), 0),
         (f"nb{fleet_nb}_pb{pool_pb}",
          bench_columns(FLEET_NODES, fleet_nb, N_POOLS, pool_pb, now, 2),
-         np.full(pool_pb, on, np.int32)),
-        (f"nb{bucket_nodes(SESSION_NODES)}_pb8",
-         bench_columns(SESSION_NODES, bucket_nodes(SESSION_NODES), 1, 8,
-                       now, 3),
-         np.zeros(8, np.int32)),
+         np.full(pool_pb, on, np.int32), 0),
+        (f"nb{session_nb}_pb8",
+         bench_columns(SESSION_NODES, session_nb, 1, 8, now, 3),
+         np.zeros(8, np.int32), 0),
         ("padded_empty_slots",
          bench_columns(FLEET_NODES * 7 // 10, fleet_nb, 7, 8, now, 4,
                        slice_stride=2),
-         np.full(8, on, np.int32)),
+         np.full(8, on, np.int32), 0),
         ("hostile_nb1024", hostile_columns(1024, 8, 5),
-         np.random.default_rng(6).integers(-1, 7, 8).astype(np.int32)),
+         np.random.default_rng(6).integers(-1, 7, 8).astype(np.int32), 0),
+        (f"one_slot_nb{session_nb}", one_slot, np.zeros(8, np.int32), 0),
+        (f"one_pool_nb{session_nb}", one_pool, np.full(8, on, np.int32), 0),
+        (f"padding_24pct_nb{session_nb}", padded, np.zeros(8, np.int32), 0),
+        (f"ragged_nb{fleet_nb - 1}",
+         bench_columns(FLEET_NODES, fleet_nb - 1, 1, 8, now, 10),
+         np.zeros(8, np.int32), 0),
+        (f"offset4_nb{fleet_nb}",
+         bench_columns(FLEET_NODES, fleet_nb, 1, 8, now, 1),
+         np.zeros(8, np.int32), 1),
     ]
     rows = []
-    for name, cols, target_h in cases:
+    for name, cols, target_h, offset in cases:
         nb, pb = cols.shape[1], target_h.shape[0]
-        block = torch.from_numpy(cols).to(DEVICE)
+        block = device_block(cols, offset)
+        require(block.is_contiguous()
+                and block.data_ptr() % 16 == (4 * offset) % 16,
+                f"fleet_tick {name}: block at the wrong alignment")
         target = torch.from_numpy(target_h).to(DEVICE)
         args = (block, target, now, stale)
         kw = {"num_pools": pb, "num_slots": nb}
@@ -268,13 +349,16 @@ def check_k1(rate: float) -> List[dict]:
         n = int((cols[7] > 0).sum())
         bound, by = k1_bound_ms(nb, pb, nb, rate)
         row = {"shape": name, "rows": nb, "valid_rows": n, "pb": pb,
-               "max_abs_err": err,
+               "storage_offset_bytes": 4 * offset, "max_abs_err": err,
                "ms": device_ms(lambda: fleet_tick_block(*args, **kw)),
                "plain_ms": device_ms(
                    lambda: fleet_tick_reference(*args, **kw)),
                "bound_ms": bound, "bound_by": by}
+        if name in K1_SPLIT_CASES:
+            row["split"] = launch_split(lambda: fleet_tick_block(*args, **kw))
         finding(kernel="fleet_tick", **row)
         rows.append(row)
+        del block, got, want
     return rows
 
 
@@ -319,26 +403,37 @@ def check_k2(rate: float) -> List[dict]:
 
 
 def check_k3(rate: float) -> List[dict]:
-    from tpu_cc_manager_torch.graft_entry import entry
-    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_plan_reference
+    from tpu_cc_manager_torch.graft_entry import _example_fleet, entry
+    from tpu_cc_manager_torch.kernels.fleet_tick import (
+        fleet_plan, fleet_plan_reference)
 
     fn, args = entry(DEVICE)
-    got = fn(*args)
-    torch.cuda.synchronize()
-    want = fleet_plan_reference(*args, num_slices=fn.keywords["num_slices"])
-    err = max_abs_err(got, want)
-    require(err == 0, f"fleet_plan: max |kernel - plain| = {err}")
-    n, s = args[0].shape[0], fn.keywords["num_slices"]
-    t_bytes = (3 * 4 * n + 2 * n + 2 * s + 4 * 12) / rate
-    t_ops = n * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
-    row = {"shape": f"n{n}_s{s}", "max_abs_err": err,
-           "ms": device_ms(lambda: fn(*args)),
-           "plain_ms": device_ms(
-               lambda: fleet_plan_reference(*args, num_slices=s)),
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    finding(kernel="fleet_plan", **row)
-    return [row]
+    s = fn.keywords["num_slices"]
+    # graft_entry.entry()'s call, then row counts that are 1, 2 and 3
+    # past a multiple of 4 (the row pass's scalar path)
+    cases = [(f"n{args[0].shape[0]}_s{s}", fn, args)]
+    for n in (257, 258, 259):
+        cases.append((f"n{n}_s{s}", fn, _example_fleet(n, s, seed=n,
+                                                       device=DEVICE)))
+    rows = []
+    for name, call, a in cases:
+        got = call(*a)
+        torch.cuda.synchronize()
+        want = fleet_plan_reference(*a, num_slices=s)
+        err = max_abs_err(got, want)
+        require(err == 0, f"fleet_plan {name}: max |kernel - plain| = {err}")
+        n = a[0].shape[0]
+        t_bytes = (3 * 4 * n + 2 * n + 2 * s + 4 * 12) / rate
+        t_ops = n * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
+        row = {"shape": name, "max_abs_err": err,
+               "ms": device_ms(lambda: call(*a)),
+               "plain_ms": device_ms(
+                   lambda: fleet_plan_reference(*a, num_slices=s)),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        finding(kernel="fleet_plan", **row)
+        rows.append(row)
+    return rows
 
 
 # ----------------------------------------------- phase 3: 100k nodes
@@ -871,9 +966,10 @@ def shard_blocks(cols: np.ndarray,
 
 
 def check_mesh_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
-    """Phase 8 (a): K1's partial form on each of 8 shards and K4 over the
+    """Phase 2: K1's partial form on each of 8 shards and K4 over the
     partials, each against its plain version, and the combine against
-    the unsharded K1 over the same block."""
+    the unsharded K1 over the same block; the partial form timed on the
+    first shard and on the last, which holds the padding."""
     from tpu_cc_manager_torch.kernels.fleet_tick import (
         MASK_KEYS, counts_len, fleet_tick_block, fleet_tick_partial,
         fleet_tick_partial_reference)
@@ -930,18 +1026,28 @@ def check_mesh_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
     partial_written = 7 * rows + 4 * m + 4 * 6 * nb
     t_bytes = (partial_read + partial_written) / rate
     t_ops = rows * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
-    b0 = blocks[0]
-    partial = {
-        "shape": f"rows{rows}_slots{nb}_pb{pb}", "rows": rows, "slots": nb,
-        "pb": pb, "shards": shards, "max_abs_err": err_p,
-        "ms": device_ms(lambda: fleet_tick_partial(
-            b0, target, now, stale, counts=counts[0], slots=slots[0], **kw)),
-        "plain_ms": device_ms(lambda: fleet_tick_partial_reference(
-            b0, target, now, stale, **kw)),
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
-    finding(kernel="fleet_tick_partial", **partial)
+    partials = []
+    # shard 0 holds no padding; the last shard holds the 48,576 padding
+    # rows (slot nb - 1, valid 0), all on one slot
+    for i, where in ((0, "first"), (shards - 1, "last_padded")):
+        b, c, sl = blocks[i], counts[i], slots[i]
+
+        def call(b=b, c=c, sl=sl) -> None:
+            fleet_tick_partial(b, target, now, stale, counts=c, slots=sl,
+                               **kw)
+
+        partial = {
+            "shape": f"rows{rows}_slots{nb}_pb{pb}_{where}", "rows": rows,
+            "slots": nb, "pb": pb, "shards": shards, "shard": i,
+            "padding_rows": int((cols[7, i * rows:(i + 1) * rows] == 0).sum()),
+            "max_abs_err": err_p, "ms": device_ms(call),
+            "plain_ms": device_ms(lambda b=b: fleet_tick_partial_reference(
+                b, target, now, stale, **kw)),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "split": launch_split(call)}
+        finding(kernel="fleet_tick_partial", **partial)
+        partials.append(partial)
 
     read = 4 * shards * (6 * nb + m)
     written = 4 * (m + 2 * pb) + 2 * nb
@@ -980,7 +1086,7 @@ def check_mesh_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
     finding(kernel="mesh_combine", **counts_only)
     del blocks, counts, slots, masks, got, whole, mask
     torch.cuda.empty_cache()
-    return [partial], [combine, counts_only]
+    return partials, [combine, counts_only]
 
 
 def check_shard_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
@@ -1435,11 +1541,12 @@ KERNELS = {
 }
 
 
-def run() -> None:
-    from tpu_cc_manager_torch.kernels import LAUNCHES, _build, reset_launches
+def setup() -> Tuple[str, Any, float, float]:
+    """Phase 1: the card's name and power limit, the build, the card's
+    memory rate and the launch floor. Returns (nvidia-smi line, library,
+    bytes per second, floor ms)."""
+    from tpu_cc_manager_torch.kernels import _build
 
-    # phases 1-7 on one shard, whatever the host has; phase 8 sets its own
-    set_mesh(1)
     smi = nvidia_smi()
     finding(phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
             device=torch.cuda.get_device_name(0), nvidia_smi=smi)
@@ -1453,9 +1560,39 @@ def run() -> None:
     rate = lib.tcc_memory_bytes_per_s(DEVICE.index or 0)
     require(rate > 0, "could not read the card's memory rate")
     finding(phase="memory_rate", bytes_per_s=rate)
+    stream = torch.cuda.current_stream(DEVICE).cuda_stream
 
-    measured = {"fleet_tick": check_k1(rate), "delta_scatter": check_k2(rate),
-                "fleet_plan": check_k3(rate)}
+    def empty() -> None:
+        _build.check(lib.tcc_empty_kernel(stream), "empty kernel launch")
+
+    floor = device_ms(empty)
+    finding(phase="launch_floor", ms=floor,
+            what="one empty kernel through the ctypes route, device_ms")
+    return smi, lib, rate, floor
+
+
+def k1_phase(rate: float) -> Dict[str, List[dict]]:
+    """Phase 2's K1 work: K1, K3 and K1's partial form (with K4 over the
+    partials) against their plain versions, and the per-launch split of
+    K1 and its partial form on its own line."""
+    measured = {"fleet_tick": check_k1(rate), "fleet_plan": check_k3(rate)}
+    measured["fleet_tick_partial"], measured["mesh_combine"] = (
+        check_mesh_kernels(rate))
+    split = {r["shape"]: r["split"] or "not measured"
+             for r in measured["fleet_tick"] + measured["fleet_tick_partial"]
+             if "split" in r}
+    finding(phase="k1_split", cases=split)
+    return measured
+
+
+def run() -> None:
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    # phases 1-7 on one shard, whatever the host has; phase 8 sets its own
+    set_mesh(1)
+    smi, _lib, rate, floor = setup()
+    measured = k1_phase(rate)
+    measured["delta_scatter"] = check_k2(rate)
 
     reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
@@ -1483,8 +1620,6 @@ def run() -> None:
             "the flip path never launched probe_add_one")
     launches["probe_add_one"] = flip_launches["probe_add_one"]
 
-    measured["fleet_tick_partial"], measured["mesh_combine"] = (
-        check_mesh_kernels(rate))
     k2_shards, k3_shards = check_shard_kernels(rate)
     measured["delta_scatter"] += k2_shards
     measured["fleet_plan"] += k3_shards
@@ -1511,9 +1646,19 @@ def run() -> None:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
+            "launch_floor_ms": floor,
             "shapes": measured[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+
+
+def run_k1() -> None:
+    """``--k1``: phases 1 and 2's K1 work alone (K1, K3, K1's partial form
+    and K4), for comparing two versions of K1 inside one chip call."""
+    set_mesh(1)
+    smi, _lib, rate, _floor = setup()
+    k1_phase(rate)
     print(smi, flush=True)
 
 
@@ -1532,16 +1677,20 @@ def run_multi_card() -> None:
     print(smi, flush=True)
 
 
+MODES = {(): run, ("--k1",): run_k1, ("--multi-card",): run_multi_card}
+
+
 def main(argv: Tuple[str, ...] = ()) -> int:
-    if list(argv) not in ([], ["--multi-card"]):
-        print("usage: python3 chip_smoke.py [--multi-card]", file=sys.stderr)
+    if tuple(argv) not in MODES:
+        print("usage: python3 chip_smoke.py [--k1 | --multi-card]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     try:
-        run_multi_card() if argv else run()
+        MODES[tuple(argv)]()
     except Exception as e:  # every phase's failure ends the run here
         import traceback
 
@@ -1549,9 +1698,10 @@ def main(argv: Tuple[str, ...] = ()) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # the default run drives cuda:0 only; --multi-card drives every card
+    multi = tuple(argv) == ("--multi-card",)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count() if argv else 1}}), flush=True)
+        "count": torch.cuda.device_count() if multi else 1}}), flush=True)
     return 0
 
 

@@ -12,7 +12,8 @@
 // inputs are 32 MiB and the outputs 9 MiB, about 13 us at 3.35 TB/s. The
 // slot arrays ([6, num_slots] int32, 24 MiB at that size) are scratch this
 // design adds on top: written by the init, hit by atomics, read back by
-// the epilogue. Measured times and the bound per shape: PERF.md.
+// the epilogue. Measured times, the bound and the per-launch split per
+// shape: PERF.md.
 //
 // On a mesh of S shards (plan.py's sharded tick) each shard runs the
 // partial entry, tcc_fleet_tick_partial: tick_init and tick_rows over its
@@ -25,16 +26,35 @@
 // Design: three launches on the caller's stream.
 //   tick_init      slot arrays to the identities of min/max (INT_MAX /
 //                  INT_MIN; 1 / 0 for at-target) and counters to 0.
-//   tick_rows      grid-stride over rows. The seven masks are written as
-//                  bytes. The two mode histograms add up in registers, the
-//                  pool counters and the pool x mode histogram in shared
-//                  memory; each CTA flushes them with one global atomicAdd
-//                  per non-zero bin. Each row does atomicMin/atomicMax on
-//                  the slot arrays at its slice id.
+//   tick_rows      each thread takes 4 consecutive rows: one 16-byte load
+//                  per column and one 4-byte store per mask row when the
+//                  row count is a multiple of 4 and the block is 16-byte
+//                  aligned, else the same rows one by one (K3's sizes, a
+//                  block at an offset). What the rows add to the slots,
+//                  pools and pool x mode bins is aggregated before any
+//                  atomic: a thread folds its rows that share a key, then
+//                  the lanes of a warp that hold one key in a run reduce
+//                  it with warp shuffles, and the run's first lane writes
+//                  (atomicMin/Max on the slot arrays in global memory,
+//                  atomicAdd on the CTA's pool counters in shared memory).
+//                  The two mode histograms add up in registers and are
+//                  summed per warp. Each CTA flushes its counters with one
+//                  global atomicAdd per non-zero bin; the grid is as many
+//                  CTAs as are resident at once, striding over the rows.
 //   tick_epilogue  slice_coherent / slice_half_flipped per slot, and
 //                  pool_skew / pool_divergent per pool.
 // Integer atomics commute, so the result is exact whatever order the
 // CTAs run in.
+//
+// Why aggregate, and by runs rather than a match of equal keys: with one
+// set of atomics per row, most of the time went to contended atomics
+// (every padding row on slot nb - 1, 16 rows on each slice's slot, 32
+// lanes on one pool's shared counter). Rows come
+// in slice order, so the lanes that share a key sit side by side; a run
+// costs one shuffle and one vote to find, and its segmented reduction the
+// same few shuffles however many runs a warp holds, where a reduction per
+// matched group is issued once per group. Equal keys that are not side
+// by side stay exact, as separate runs that each write.
 //
 // Index rules are JAX's, because the reference is held to them: a negative
 // index counts once from the end; a scatter (histograms, slot min/max)
@@ -60,6 +80,9 @@ constexpr int kFailed = 5;           // plan.MODE_CODES["failed"]
 constexpr int kDoctorUnreported = 0; // plan.DOCTOR_UNREPORTED
 constexpr int kDoctorFailing = 2;    // plan.DOCTOR_FAILING
 constexpr int kHead = 2 * kModes;    // mode + desired histograms
+constexpr int kCols = 8;             // plan.COLS_ORDER
+constexpr int kMasks = 7;
+constexpr int kRowsPerThread = 4;    // one int4 per column
 
 // agg (int32), in this order:
 //   mode_counts[6] desired_counts[6] pool_nodes[pb] pool_converged[pb]
@@ -98,6 +121,157 @@ __global__ void tick_init(int32_t* __restrict__ agg, int agg_len,
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Lanes group by runs: the lanes from one whose key differs from its left
+// neighbour's (a run head) up to the next head. Rows come in order, so
+// the lanes that share a slice or a pool sit next to each other; equal
+// keys apart from each other still give the exact result, as separate
+// runs that each write. Returns the heads, one bit per lane.
+__device__ __forceinline__ unsigned run_heads(int key) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  return __ballot_sync(kFull, lane == 0 || prev != key);
+}
+
+struct Min {
+  __device__ int operator()(int a, int b) const { return min(a, b); }
+};
+struct Max {
+  __device__ int operator()(int a, int b) const { return max(a, b); }
+};
+struct Or {
+  __device__ unsigned operator()(unsigned a, unsigned b) const {
+    return a | b;
+  }
+};
+struct Add {
+  __device__ unsigned operator()(unsigned a, unsigned b) const {
+    return a + b;
+  }
+};
+
+// `v` reduced over this lane's run, valid on the run's head: a segmented
+// tree of full-warp shuffles, whose cost does not grow with the number of
+// runs (a reduction over each run's own lane mask is issued once per run).
+// Nothing to do when every lane is its own run.
+template <typename T, typename Op>
+__device__ __forceinline__ T run_reduce(T v, unsigned heads, Op op) {
+  if (heads == kFull) return v;
+  const int lane = threadIdx.x & 31;
+  const unsigned above = heads & ~(kFull >> (31 - lane));
+  const int end = above ? __ffs(above) - 1 : 32;  // next head, exclusive
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T o = __shfl_down_sync(kFull, v, d);
+    if (lane + d < end) v = op(v, o);
+  }
+  return v;
+}
+
+// True where this lane heads its run and has something to write.
+__device__ __forceinline__ bool writes(int key, unsigned heads) {
+  return key >= 0 && ((heads >> (threadIdx.x & 31)) & 1u);
+}
+
+// What a run of rows adds to one slot: desired and observed min/max, and
+// the at-target bits (1: some row at target, 2: some row not).
+struct SlotItem {
+  int key;  // wrapped slot id, or -1 for nothing to add
+  int d_min, d_max, o_min, o_max;
+  unsigned at;
+  __device__ void merge(const SlotItem& o) {
+    d_min = min(d_min, o.d_min);
+    d_max = max(d_max, o.d_max);
+    o_min = min(o_min, o.o_min);
+    o_max = max(o_max, o.o_max);
+    at |= o.at;
+  }
+};
+
+// What rows add to one pool's counters: the sum of valid, and the
+// converged, failed and eligible rows packed 8 bits apart (a warp adds at
+// most 32 * kRowsPerThread = 128 into each field).
+struct PoolItem {
+  int key;  // wrapped pool id, or -1
+  unsigned nodes, flags;
+  __device__ void merge(const PoolItem& o) {
+    nodes += o.nodes;
+    flags += o.flags;
+  }
+};
+
+// What rows add to one (pool, observed mode) bin of the pool histogram.
+struct HistItem {
+  int key;  // pool * kModes + mode, or -1
+  unsigned count;
+  __device__ void merge(const HistItem& o) { count += o.count; }
+};
+
+// Folds each of a thread's items into the first of its items with the
+// same key; the folded ones get key -1.
+template <typename Item>
+__device__ __forceinline__ void fold(Item (&it)[kRowsPerThread]) {
+#pragma unroll
+  for (int j = 1; j < kRowsPerThread; ++j) {
+    bool done = it[j].key < 0;
+#pragma unroll
+    for (int k = 0; k < j; ++k) {
+      if (!done && it[k].key == it[j].key) {
+        it[k].merge(it[j]);
+        it[j].key = -1;
+        done = true;
+      }
+    }
+  }
+}
+
+// One item per lane into the slot arrays: each run of lanes on one slot
+// reduces across the warp and its head issues the atomics.
+__device__ __forceinline__ void flush_slot(SlotItem it, int32_t* slots,
+                                           int64_t s) {
+  const unsigned heads = run_heads(it.key);
+  it.d_min = run_reduce(it.d_min, heads, Min());
+  it.d_max = run_reduce(it.d_max, heads, Max());
+  it.o_min = run_reduce(it.o_min, heads, Min());
+  it.o_max = run_reduce(it.o_max, heads, Max());
+  it.at = run_reduce(it.at, heads, Or());
+  if (!writes(it.key, heads)) return;
+  int32_t* p = slots + it.key;
+  atomicMin(p, it.d_min);
+  atomicMax(p + s, it.d_max);
+  atomicMin(p + 2 * s, it.o_min);
+  atomicMax(p + 3 * s, it.o_max);
+  // at-target is 0 or 1 and its slots start at 1 / 0: only the value
+  // that moves one of them needs an atomic
+  if (it.at & 2u) atomicMin(p + 4 * s, 0);
+  if (it.at & 1u) atomicMax(p + 5 * s, 1);
+}
+
+// One item per lane into the CTA's pool counters (shared memory).
+__device__ __forceinline__ void flush_pool(PoolItem it, int32_t* s_nodes,
+                                           int pb) {
+  const unsigned heads = run_heads(it.key);
+  it.nodes = run_reduce(it.nodes, heads, Add());
+  it.flags = run_reduce(it.flags, heads, Add());
+  if (!writes(it.key, heads)) return;
+  const unsigned conv = it.flags & 0xffu;
+  const unsigned failed = (it.flags >> 8) & 0xffu;
+  const unsigned elig = it.flags >> 16;
+  if (it.nodes != 0u) atomicAdd(&s_nodes[it.key], (int32_t)it.nodes);
+  if (conv != 0u) atomicAdd(&s_nodes[pb + it.key], (int32_t)conv);
+  if (failed != 0u) atomicAdd(&s_nodes[2 * pb + it.key], (int32_t)failed);
+  if (elig != 0u) atomicAdd(&s_nodes[3 * pb + it.key], (int32_t)elig);
+}
+
+// One item per lane into the CTA's pool x mode histogram.
+__device__ __forceinline__ void flush_hist(HistItem it, int32_t* s_hist) {
+  const unsigned heads = run_heads(it.key);
+  it.count = run_reduce(it.count, heads, Add());
+  if (!writes(it.key, heads) || it.count == 0u) return;
+  atomicAdd(&s_hist[it.key], (int32_t)it.count);
+}
+
 __global__ void __launch_bounds__(kThreads)
 tick_rows(const int32_t* __restrict__ cols, int n,
           const int32_t* __restrict__ pool_target, int pb, int num_slots,
@@ -107,97 +281,166 @@ tick_rows(const int32_t* __restrict__ cols, int n,
   const int sh_len = kHead + 10 * pb;
   for (int j = threadIdx.x; j < sh_len; j += blockDim.x) sh[j] = 0;
   __syncthreads();
-  int32_t* s_nodes = sh + kHead;
-  int32_t* s_conv = s_nodes + pb;
-  int32_t* s_failed = s_conv + pb;
-  int32_t* s_elig = s_failed + pb;
-  int32_t* s_hist = s_elig + pb;
+  int32_t* s_nodes = sh + kHead;  // then converged, failed, eligible
+  int32_t* s_hist = s_nodes + 4 * pb;
 
   const int64_t rows = n;
-  const int64_t s = num_slots;
-  int32_t* d_min = slots;
-  int32_t* d_max = slots + s;
-  int32_t* o_min = slots + 2 * s;
-  int32_t* o_max = slots + 3 * s;
-  int32_t* at_min = slots + 4 * s;
-  int32_t* at_max = slots + 5 * s;
+  const int64_t quads = (rows + kRowsPerThread - 1) / kRowsPerThread;
+  // the vector path: one 16-byte load per column and one 4-byte store per
+  // mask row for each thread's 4 rows; else the same work row by row
+  const bool vec = rows % kRowsPerThread == 0 &&
+                   reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(masks) % 4 == 0;
+  const int lane = threadIdx.x & 31;
 
   // int32 sums wrap as the reference's do; unsigned keeps that defined
   uint32_t mode_cnt[kModes] = {0, 0, 0, 0, 0, 0};
   uint32_t desired_cnt[kModes] = {0, 0, 0, 0, 0, 0};
 
+  // the loop runs per warp, so every lane reaches the warp-wide votes;
+  // a lane past the last quad adds nothing
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < rows; i += stride) {
-    const int32_t desired = cols[i];
-    const int32_t observed = cols[rows + i];
-    const int32_t slice = cols[2 * rows + i];
-    const int32_t pool = cols[3 * rows + i];
-    const int32_t taint = cols[4 * rows + i];
-    const int32_t doctor = cols[5 * rows + i];
-    const int32_t ev_ts = cols[6 * rows + i];
-    const int32_t valid = cols[7 * rows + i];
-
-    const bool is_valid = valid > 0;
-    const bool known = desired != kUnknown && is_valid;
-    const bool failed = observed == kFailed && is_valid;
-    const bool flipping = taint > 0 && is_valid;
-    const bool doctor_failing = doctor == kDoctorFailing && is_valid;
-    const int32_t age = (int32_t)((uint32_t)now_s - (uint32_t)ev_ts);
-    const bool stale = ev_ts >= 0 && age > stale_s && is_valid;
-
-    const int pw = wrap_index(pool, pb);
-    const int32_t target = pool_target[pw < 0 ? 0 : (pw >= pb ? pb - 1 : pw)];
-    const bool converged = observed == target && desired == target && known;
-    const bool eligible =
-        !converged && is_valid && !flipping && !doctor_failing;
-
-    masks[i] = desired != observed && known;
-    masks[rows + i] = failed;
-    masks[2 * rows + i] = flipping;
-    masks[3 * rows + i] = doctor_failing;
-    masks[4 * rows + i] = doctor == kDoctorUnreported && is_valid;
-    masks[5 * rows + i] = stale;
-    masks[6 * rows + i] = eligible;
-
-    const int om = wrap_index(observed, kModes);
-    const int dm = wrap_index(desired, kModes);
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < quads; base += stride) {
+    const int64_t q = base + lane;
+    const int64_t row0 = q * kRowsPerThread;
+    int32_t v[kCols][kRowsPerThread] = {};
+    int live = 0;
+    if (vec) {
+      if (q < quads) {
+        live = kRowsPerThread;
 #pragma unroll
-    for (int m = 0; m < kModes; ++m) {
-      mode_cnt[m] += om == m ? (uint32_t)valid : 0u;
-      desired_cnt[m] += dm == m ? (uint32_t)valid : 0u;
-    }
-
-    if (in_range(pw, pb)) {
-      if (valid != 0) atomicAdd(&s_nodes[pw], valid);
-      if (converged) atomicAdd(&s_conv[pw], 1);
-      if (failed) atomicAdd(&s_failed[pw], 1);
-      if (eligible) atomicAdd(&s_elig[pw], 1);
-      if (valid != 0 && in_range(om, kModes))
-        atomicAdd(&s_hist[pw * kModes + om], valid);
-    }
-
-    const int sw = wrap_index(slice, num_slots);
-    if (in_range(sw, num_slots)) {
-      atomicMin(&d_min[sw], desired);
-      atomicMax(&d_max[sw], desired);
-      atomicMin(&o_min[sw], observed);
-      atomicMax(&o_max[sw], observed);
-      // at-target is 0 or 1 and its slots start at 1 / 0: only the
-      // value that moves one of them needs an atomic
-      if (observed == desired && known) {
-        atomicMax(&at_max[sw], 1);
-      } else {
-        atomicMin(&at_min[sw], 0);
+        for (int c = 0; c < kCols; ++c) {
+          const int4 x =
+              __ldcs(reinterpret_cast<const int4*>(cols + c * rows) + q);
+          v[c][0] = x.x;
+          v[c][1] = x.y;
+          v[c][2] = x.z;
+          v[c][3] = x.w;
+        }
       }
+    } else if (q < quads) {
+      const int64_t left = rows - row0;
+      live = left < kRowsPerThread ? (int)left : kRowsPerThread;
+#pragma unroll
+      for (int j = 0; j < kRowsPerThread; ++j) {
+        if (j < live) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            v[c][j] = __ldcs(cols + c * rows + row0 + j);
+        }
+      }
+    }
+
+    uint32_t mk[kMasks] = {0, 0, 0, 0, 0, 0, 0};
+    SlotItem si[kRowsPerThread];
+    PoolItem pi[kRowsPerThread];
+    HistItem hi[kRowsPerThread];
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      // a row past the end reads as zeros (valid 0) and has no keys
+      const bool here = j < live;
+      const int32_t desired = v[0][j];
+      const int32_t observed = v[1][j];
+      const int32_t slice = v[2][j];
+      const int32_t pool = v[3][j];
+      const int32_t taint = v[4][j];
+      const int32_t doctor = v[5][j];
+      const int32_t ev_ts = v[6][j];
+      const int32_t valid = v[7][j];
+
+      const bool is_valid = valid > 0;
+      const bool known = desired != kUnknown && is_valid;
+      const bool failed = observed == kFailed && is_valid;
+      const bool flipping = taint > 0 && is_valid;
+      const bool doctor_failing = doctor == kDoctorFailing && is_valid;
+      const int32_t age = (int32_t)((uint32_t)now_s - (uint32_t)ev_ts);
+      const bool stale = ev_ts >= 0 && age > stale_s && is_valid;
+
+      const int pw = wrap_index(pool, pb);
+      const int32_t target =
+          __ldg(pool_target + (pw < 0 ? 0 : (pw >= pb ? pb - 1 : pw)));
+      const bool converged = observed == target && desired == target && known;
+      const bool eligible =
+          !converged && is_valid && !flipping && !doctor_failing;
+      const bool at_target = observed == desired && known;
+
+      const int sh8 = 8 * j;
+      mk[0] |= (uint32_t)(desired != observed && known) << sh8;
+      mk[1] |= (uint32_t)failed << sh8;
+      mk[2] |= (uint32_t)flipping << sh8;
+      mk[3] |= (uint32_t)doctor_failing << sh8;
+      mk[4] |= (uint32_t)(doctor == kDoctorUnreported && is_valid) << sh8;
+      mk[5] |= (uint32_t)stale << sh8;
+      mk[6] |= (uint32_t)eligible << sh8;
+
+      const int om = wrap_index(observed, kModes);
+      const int dm = wrap_index(desired, kModes);
+#pragma unroll
+      for (int m = 0; m < kModes; ++m) {
+        mode_cnt[m] += om == m ? (uint32_t)valid : 0u;
+        desired_cnt[m] += dm == m ? (uint32_t)valid : 0u;
+      }
+
+      const int sw = wrap_index(slice, num_slots);
+      si[j].key = here && in_range(sw, num_slots) ? sw : -1;
+      si[j].d_min = si[j].d_max = desired;
+      si[j].o_min = si[j].o_max = observed;
+      si[j].at = at_target ? 1u : 2u;
+
+      // a row with valid 0 (padding) adds nothing to its pool: every flag
+      // needs valid > 0
+      pi[j].key = here && valid != 0 && in_range(pw, pb) ? pw : -1;
+      pi[j].nodes = (uint32_t)valid;
+      pi[j].flags = (uint32_t)converged | (uint32_t)failed << 8 |
+                    (uint32_t)eligible << 16;
+
+      hi[j].key = here && valid != 0 && in_range(pw, pb) && in_range(om, kModes)
+                      ? pw * kModes + om
+                      : -1;
+      hi[j].count = (uint32_t)valid;
+    }
+
+    if (live > 0) {
+      if (vec) {
+#pragma unroll
+        for (int k = 0; k < kMasks; ++k)
+          __stcs(reinterpret_cast<unsigned int*>(masks + k * rows) + q, mk[k]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRowsPerThread; ++j) {
+          if (j < live) {
+#pragma unroll
+            for (int k = 0; k < kMasks; ++k)
+              masks[k * rows + row0 + j] = (uint8_t)(mk[k] >> (8 * j));
+          }
+        }
+      }
+    }
+
+    fold(si);
+    fold(pi);
+    fold(hi);
+    // one round per item position; a position no lane holds is skipped
+    // (after the fold most threads hold one slot and one pool item)
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      if (__any_sync(kFull, si[r].key >= 0))
+        flush_slot(si[r], slots, num_slots);
+      if (__any_sync(kFull, pi[r].key >= 0)) flush_pool(pi[r], s_nodes, pb);
+      if (__any_sync(kFull, hi[r].key >= 0)) flush_hist(hi[r], s_hist);
     }
   }
 
+  // the mode histograms: a warp sum each, one shared atomic per warp
 #pragma unroll
   for (int m = 0; m < kModes; ++m) {
-    if (mode_cnt[m] != 0u) atomicAdd(&sh[m], (int32_t)mode_cnt[m]);
-    if (desired_cnt[m] != 0u)
-      atomicAdd(&sh[kModes + m], (int32_t)desired_cnt[m]);
+    const uint32_t om = __reduce_add_sync(kFull, mode_cnt[m]);
+    const uint32_t dm = __reduce_add_sync(kFull, desired_cnt[m]);
+    if (lane == 0) {
+      if (om != 0u) atomicAdd(&sh[m], (int32_t)om);
+      if (dm != 0u) atomicAdd(&sh[kModes + m], (int32_t)dm);
+    }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < sh_len; j += blockDim.x) {
@@ -245,6 +488,9 @@ int blocks_for(int64_t work, int cap) {
 // tick_init, then tick_rows when there are rows: the part of K1 that the
 // full tick and a shard's partial share. `agg_len` entries of `agg` start
 // at 0: kHead + 12 * pb for the full tick, kHead + 10 * pb for a partial.
+// tick_rows gets one thread per 4 rows, at most as many CTAs as are
+// resident on the card at once: each CTA flushes its shared counters
+// with global atomics, so fewer CTAs mean fewer of those.
 int launch_init_rows(const void* cols, int n, const void* pool_target, int pb,
                      int num_slots, int now_s, int stale_s, void* masks,
                      int32_t* agg, int agg_len, int32_t* slots,
@@ -262,10 +508,16 @@ int launch_init_rows(const void* cols, int n, const void* pool_target, int pb,
                                  (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    tick_rows<<<blocks_for(n, 8 * sms), kThreads, smem, st>>>(
-        static_cast<const int32_t*>(cols), n,
-        static_cast<const int32_t*>(pool_target), pb, num_slots, now_s,
-        stale_s, static_cast<uint8_t*>(masks), agg, slots);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tick_rows,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t quads = ((int64_t)n + kRowsPerThread - 1) / kRowsPerThread;
+    tick_rows<<<blocks_for(quads, (per_sm > 0 ? per_sm : 1) * sms), kThreads,
+                smem, st>>>(static_cast<const int32_t*>(cols), n,
+                            static_cast<const int32_t*>(pool_target), pb,
+                            num_slots, now_s, stale_s,
+                            static_cast<uint8_t*>(masks), agg, slots);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -20,3 +20,14 @@ extern "C" double tcc_memory_bytes_per_s(int device) {
     return -1.0;
   return 2.0 * 1000.0 * khz * (bits / 8.0);
 }
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// Launches a kernel that does nothing, one thread, on `stream`: the floor
+// under every launch that goes through this library's ctypes route.
+extern "C" int tcc_empty_kernel(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}

@@ -132,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tcc_error_string.restype = ctypes.c_char_p
     lib.tcc_memory_bytes_per_s.argtypes = [i]
     lib.tcc_memory_bytes_per_s.restype = ctypes.c_double
+    lib.tcc_empty_kernel.argtypes = [p]
+    lib.tcc_empty_kernel.restype = i
 
 
 def library() -> ctypes.CDLL:

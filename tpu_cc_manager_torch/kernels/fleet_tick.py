@@ -8,10 +8,15 @@ package, with the CUDA kernel in ``csrc/fleet_tick.cu``.
 Bound on an H100: bytes. Each row reads 32 B of columns and writes 7 mask
 bytes; the arithmetic is a few dozen integer operations. At
 nb = 1,048,576 that is 41 MiB, about 13 us at 3.35 TB/s; the kernel also
-moves its [6, num_slots] slot scratch. Design (three launches: init, one
-grid-stride row pass with shared-memory pool counters and atomic slot
-min/max, epilogue) and the index rules it keeps: the head of
-``csrc/fleet_tick.cu``. Times on the card: PERF.md.
+moves its [6, num_slots] slot scratch. Design: three launches (init, row
+pass, epilogue). The row pass gives each thread 4 rows (16-byte column
+loads when the block is 16-byte aligned and its row count a multiple of
+4, row by row otherwise, inside the same kernel) and aggregates what
+rows add to a slot, a pool or a pool x mode bin before any atomic: per
+thread, then per run of lanes with one key, so a hot slot or one pool
+costs one atomic per warp instead of one per row. The details and the
+index rules it keeps: the head of ``csrc/fleet_tick.cu``. Times on the
+card: PERF.md.
 
 :func:`fleet_tick_partial` is K1's partial form for one shard of a
 mesh: the row pass over the shard's rows with the global slot and pool
