@@ -14,14 +14,18 @@ exits non-zero without them, and whenever any phase fails.
    nb - 1), a padded fleet with empty slots, out-of-range indices, every
    row in one slot, every row in one pool, a 1M bucket padded at 24 %,
    131,071 rows and a block at a 4-byte storage offset (the row pass's
-   scalar path); K3 ``fleet_plan`` at ``graft_entry.entry()``'s shape and
-   at 257, 258 and 259 rows; K1's partial form on the first (unpadded)
-   and the last (padded) of 8 shards of 1,048,576 rows with hostile slice
-   ids and K4 ``mesh_combine`` over the 8 partials; K2 ``delta_scatter``
-   at 64 and 16,384 delta slots. Every output must be equal; each is
-   timed with CUDA events (median of 25 after warm-up), and K1's and its
-   partial form's launches one by one with ``torch.profiler`` (the
-   ``k1_split`` line).
+   scalar path); K1's partial form on the first (unpadded) and the last
+   (padded) of 8 shards of 1,048,576 rows with hostile slice ids and K4
+   ``mesh_combine`` over the 8 partials; K3 ``fleet_plan`` (its one-CTA
+   kernel) at ``graft_entry.entry()``'s shape, at 257, 258 and 259 rows,
+   with hostile codes and slice ids at 1,024 rows, and at the one-CTA
+   kernel's row and slot limits and one past each (K1's route); K2
+   ``delta_scatter`` on one block at 64 and 16,384 delta slots, with
+   indices below 0 and past the end and padding. Every output must be
+   equal; each is timed with CUDA events (median of 25 after warm-up),
+   K1's and its partial form's launches one by one with
+   ``torch.profiler`` (the ``k1_split`` line), and K2's and K3's device
+   kernels per call counted with it.
 3. Main path at 100,000 nodes: the CLI (``plan.main --from-file``) on a
    seeded NodeList, then ``analyze_pools`` over 8 pools with a
    ``PoolScanScratch``, twice; every report is checked against a numpy
@@ -43,11 +47,11 @@ exits non-zero without them, and whenever any phase fails.
    per flip; then phase 4's session ticks to the same outputs as before
    the resets. The mode store lives in a temporary directory, and
    ``/dev/nvidia*`` keeps its permission bits.
-8. The mesh (``TPU_CC_PLANNER_MESH``): (a) K2 on each of the 8 shard
-   blocks (row offset, shard width) at 16,384 delta slots with every
-   shard's edge rows and padding, and K3 at the dry run's per-shard
-   shape, each bit-equal to its plain version (K1's partial form and K4
-   are held in phase 2);
+8. The mesh (``TPU_CC_PLANNER_MESH``): (a) K2 over the 8 shard blocks
+   of one card in one launch at 16,384 delta slots with every shard's
+   edge rows, indices no shard owns and padding, and K3 over the dry
+   run's 8 shards in one launch and at its cross-check, each bit-equal
+   to its plain version (K1's partial form and K4 are held in phase 2);
    (b) phase 4's 1M-row session at 1 % deltas on 8 shards on ``cuda:0``
    (rebuild, three incremental ticks, a forced full tick), every output
    array equal to the 1-shard session's, with the device time of the
@@ -61,15 +65,21 @@ exits non-zero without them, and whenever any phase fails.
    (e) with two cards or more, (b) again at 2 shards per card over every
    card.
 
-``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K3, K1-partial
-and K4 work alone, to compare two versions of K1 within one chip call.
+``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
+K4 work alone, to compare two versions of K1 within one chip call.
+``python3 chip_smoke.py --k2k3`` runs phase 1 and the K2 and K3 checks of
+phases 2 and 8 (a) alone, with the row count where K3's one-CTA kernel
+and K1's route cross (the ``k3_crossover`` line), to compare two
+versions of K2 and K3 within one chip call.
 ``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
 are set to 0 just before phase 3 and read just after phase 5, set to 0
 again just before phase 7 and read just after it, and again just before
 phase 8's (b) and read just after its (d): each kernel must have been
-launched on its path. Lines before the last are findings (one JSON
+launched on its path, K2 exactly once per card per incremental tick and
+K3 once per ``entry()`` call and, in the dry run, once per card plus the
+cross-check. Lines before the last are findings (one JSON
 object each), the ``{"kernels": [...]}`` line and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``, whose
 ``count`` is 1 (the cards this run drives) and, under ``--multi-card``,
@@ -362,7 +372,55 @@ def check_k1(rate: float) -> List[dict]:
     return rows
 
 
+def kernels_per_call(fn: Callable[[], Any]) -> Any:
+    """The device kernels one call of ``fn`` runs, from ``torch.profiler``'s
+    CUDA activity over REPS calls after warm-up: their count per call and
+    their names, or "not measured" when the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARM):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "not measured"
+    return {"kernels_per_call": len(kernels) / REPS,
+            "kernel_names": sorted({e.name for e in kernels})}
+
+
+def k2_bound_ms(kb: int, live: int, rate: float) -> float:
+    """K2 reads every index once, and only a live slot's 8 values, which
+    it writes once: 4 bytes per slot and 64 per live slot, for the whole
+    mesh however many shards hold the rows."""
+    return 1e3 * (4 * kb + 2 * 4 * 8 * live) / rate
+
+
+def scatter_indices(nb: int, kb: int, k: int, rng: np.random.Generator,
+                    must: Optional[np.ndarray] = None) -> np.ndarray:
+    """``kb`` delta indices for a block of ``nb`` rows: ``k`` unique live
+    rows of the session's fleet (``must`` among them), then indices no
+    shard owns (a negative one, the int32 extremes, one past the end),
+    then the padding index ``nb``."""
+    must = np.zeros(0, np.int32) if must is None else must
+    rest = np.setdiff1d(np.arange(SESSION_NODES, dtype=np.int32), must)
+    idx = np.full(kb, nb, np.int32)
+    idx[:k] = rng.permutation(np.concatenate(
+        [must, rng.choice(rest, k - must.size, replace=False)]))
+    idx[k:k + 4] = [-1, -(2 ** 31), 2 ** 31 - 1, nb + 7]
+    return idx
+
+
 def check_k2(rate: float) -> List[dict]:
+    """K2 on one block (the session's unsharded geometry, one launch per
+    incremental tick) at 64 and 16,384 delta slots, indices past both
+    ends and padding included."""
     from tpu_cc_manager_torch.kernels.delta_scatter import (
         delta_scatter, delta_scatter_reference)
     from tpu_cc_manager_torch.plan import bucket_deltas, bucket_nodes
@@ -374,8 +432,7 @@ def check_k2(rate: float) -> List[dict]:
         rng = np.random.default_rng(kb)
         base = torch.from_numpy(
             rng.integers(-9, 9, (8, nb)).astype(np.int32)).to(DEVICE)
-        idx_h = np.full(kb, nb, np.int32)
-        idx_h[:k] = rng.choice(SESSION_NODES, k, replace=False)
+        idx_h = scatter_indices(nb, kb, k, rng)
         idx = torch.from_numpy(idx_h).to(DEVICE)
         vals = torch.from_numpy(
             rng.integers(-9, 9, (8, kb)).astype(np.int32)).to(DEVICE)
@@ -387,53 +444,134 @@ def check_k2(rate: float) -> List[dict]:
         require(err == 0, f"delta_scatter kb={kb}: max |kernel - plain| = {err}")
         require(not torch.equal(got, base), "delta_scatter wrote nothing")
         ik, vk = idx[:k], vals[:, :k]
-        # every index is read; only a live slot's 8 values are read and
-        # written (the kernel skips the padding slots' values)
-        moved = 4 * kb + 2 * 4 * 8 * k
         row = {"shape": f"kb{kb}", "kb": kb, "live": k, "max_abs_err": err,
                "ms": device_ms(lambda: delta_scatter(got, idx, vals)),
                "plain_ms": device_ms(
                    lambda: delta_scatter_reference(want, idx, vals)),
                "library_ms": device_ms(
                    lambda: want.__setitem__((slice(None), ik), vk)),
-               "bound_ms": 1e3 * moved / rate, "bound_by": "bytes"}
+               "bound_ms": k2_bound_ms(kb, k, rate), "bound_by": "bytes",
+               "profile": kernels_per_call(
+                   lambda: delta_scatter(got, idx, vals))}
         finding(kernel="delta_scatter", **row)
         rows.append(row)
     return rows
 
 
+def hostile_plan(n: int, s: int, seed: int) -> Tuple[torch.Tensor, ...]:
+    """K3's three columns with codes past N_MODES and below 0 (-7, -1, 6,
+    99) and slice ids negative and past ``s``, among valid ones."""
+    rng = np.random.default_rng(seed)
+    codes = np.array([-7, -1, 6, 99, 0, 1, 2, 3, 4, 5], np.int32)
+    desired = rng.choice(codes, n).astype(np.int32)
+    observed = rng.choice(codes, n).astype(np.int32)
+    slice_ids = rng.integers(-2 * s, 2 * s, n).astype(np.int32)
+    slice_ids[:4] = [-(2 ** 31), 2 ** 31 - 1, -1, s]
+    return tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in (desired, observed, slice_ids))
+
+
+def k3_bound_ms(rows: int, slots: int, shards: int,
+                rate: float) -> Tuple[float, str]:
+    """K3 reads 12 bytes a row and writes 2 mask bytes a row, 2 verdict
+    bytes a slot and 48 bytes of counts per shard."""
+    t_bytes = (14 * rows + shards * (2 * slots + 48)) / rate
+    t_ops = rows * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_k3(rate: float) -> List[dict]:
+    """K3 at ``graft_entry.entry()``'s shape, at row counts 1, 2 and 3
+    past a multiple of 4, with hostile codes and slice ids, and at the
+    one-CTA kernel's limits and one past each (K1's route)."""
     from tpu_cc_manager_torch.graft_entry import _example_fleet, entry
-    from tpu_cc_manager_torch.kernels.fleet_tick import (
-        fleet_plan, fleet_plan_reference)
+    from tpu_cc_manager_torch.kernels import fleet_tick as KF
 
     fn, args = entry(DEVICE)
     s = fn.keywords["num_slices"]
-    # graft_entry.entry()'s call, then row counts that are 1, 2 and 3
-    # past a multiple of 4 (the row pass's scalar path)
-    cases = [(f"n{args[0].shape[0]}_s{s}", fn, args)]
+    cases = [(f"n{args[0].shape[0]}_s{s}", args, s)]
     for n in (257, 258, 259):
-        cases.append((f"n{n}_s{s}", fn, _example_fleet(n, s, seed=n,
-                                                       device=DEVICE)))
+        cases.append((f"n{n}_s{s}", _example_fleet(n, s, seed=n,
+                                                   device=DEVICE), s))
+    cases.append((f"hostile_n1024_s{s}", hostile_plan(1024, s, 61), s))
+    route = getattr(KF, "_plan_route", None)
+    if route is not None:
+        rows_cap, slots_cap = KF.MAX_PLAN_ROWS, KF.MAX_PLAN_SLOTS
+        for n in (rows_cap, rows_cap + 1):
+            cases.append((f"rows_limit_n{n}_s{s}",
+                          _example_fleet(n, s, seed=62, device=DEVICE), s))
+        for slots in (slots_cap, slots_cap + 1):
+            cases.append((f"slots_limit_n256_s{slots}",
+                          _example_fleet(256, slots, seed=63, device=DEVICE),
+                          slots))
     rows = []
-    for name, call, a in cases:
-        got = call(*a)
+    for name, a, slots in cases:
+        got = KF.fleet_plan(*a, num_slices=slots)
         torch.cuda.synchronize()
-        want = fleet_plan_reference(*a, num_slices=s)
+        want = KF.fleet_plan_reference(*a, num_slices=slots)
         err = max_abs_err(got, want)
         require(err == 0, f"fleet_plan {name}: max |kernel - plain| = {err}")
-        n = a[0].shape[0]
-        t_bytes = (3 * 4 * n + 2 * n + 2 * s + 4 * 12) / rate
-        t_ops = n * K1_OPS_PER_ROW / PEAK_SCALAR_OPS
-        row = {"shape": name, "max_abs_err": err,
-               "ms": device_ms(lambda: call(*a)),
+        n = int(a[0].shape[0])
+        bound, by = k3_bound_ms(n, slots, 1, rate)
+        row = {"shape": name, "n": n, "slots": slots,
+               "route": route(n, slots) if route else "k1",
+               "max_abs_err": err,
+               "ms": device_ms(lambda: KF.fleet_plan(*a, num_slices=slots)),
                "plain_ms": device_ms(
-                   lambda: fleet_plan_reference(*a, num_slices=s)),
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                   lambda: KF.fleet_plan_reference(*a, num_slices=slots)),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "profile": kernels_per_call(
+                   lambda: KF.fleet_plan(*a, num_slices=slots))}
         finding(kernel="fleet_plan", **row)
         rows.append(row)
     return rows
+
+
+#: the row counts at which K3's two routes are timed against each other
+CROSSOVER_ROWS = (1_024, 2_048, 4_096, 8_192, 16_384, 32_768, 65_536,
+                  131_072)
+
+
+def k3_crossover() -> dict:
+    """K3's one-CTA kernel against K1's route on the same columns at
+    CROSSOVER_ROWS, both equal to the plain version, in two slice
+    layouts: ``entry()``'s (row i in slice i % 16, 16 slots: every lane of
+    a warp on its own slot) and the fleet's (16-host slices in row order,
+    n / 16 slots). The first row count at which K1's multi-CTA route is
+    faster, in each layout, is what the one-CTA limit ``MAX_PLAN_ROWS``
+    of ``kernels/fleet_tick.py`` is set from."""
+    from tpu_cc_manager_torch.graft_entry import _example_fleet
+    from tpu_cc_manager_torch.kernels import fleet_tick as KF
+
+    out: Dict[str, Any] = {"max_plan_rows": KF.MAX_PLAN_ROWS}
+    for layout in ("round_robin_s16", "slices_of_16"):
+        points, crossover = [], None
+        for n in CROSSOVER_ROWS:
+            if layout == "round_robin_s16":
+                s = 16
+                a = _example_fleet(n, s, seed=n, device=DEVICE)
+            else:
+                s = n // SLICE_HOSTS
+                d, o, _ = _example_fleet(n, 1, seed=n, device=DEVICE)
+                a = (d, o, torch.arange(n, dtype=torch.int32, device=DEVICE)
+                     // SLICE_HOSTS)
+            want = KF.fleet_plan_reference(*a, num_slices=s)
+            cta = KF._launch_plan([a], s, None)[0]
+            k1 = KF._plan_on_k1(*a, s)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(cta, want), max_abs_err(k1, want))
+            require(err == 0, f"fleet_plan routes, {layout} n={n}: {err}")
+            point = {"n": n, "slots": s,
+                     "cta_ms": device_ms(lambda: KF._launch_plan([a], s,
+                                                                 None)),
+                     "k1_ms": device_ms(lambda: KF._plan_on_k1(*a, s))}
+            points.append(point)
+            if crossover is None and point["k1_ms"] < point["cta_ms"]:
+                crossover = n
+        out[layout] = {"points": points, "first_n_k1_faster": crossover}
+    finding(phase="k3_crossover", **out)
+    return out
 
 
 # ----------------------------------------------- phase 3: 100k nodes
@@ -691,8 +829,9 @@ def session_phase() -> Tuple[dict, Any, Any]:
         res = sess.tick(enc)
         incr.append(time.perf_counter() - t0)
         require(res.kind == "incremental", f"tick {r} was {res.kind}")
-    require(LAUNCHES["delta_scatter"] >= scatters + INCR_TICKS,
-            "incremental ticks did not launch delta_scatter")
+    require(LAUNCHES["delta_scatter"] == scatters + INCR_TICKS,
+            f"{LAUNCHES['delta_scatter'] - scatters} delta_scatter launches "
+            f"in {INCR_TICKS} incremental ticks on one shard, not one each")
     t0 = time.perf_counter()
     res = sess.tick(enc, force_full=True)  # raises IncrementalDriftError
     full_s = time.perf_counter() - t0
@@ -1089,18 +1228,52 @@ def check_mesh_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
     return partials, [combine, counts_only]
 
 
+def scatter_shards(blocks: List[torch.Tensor], idx: torch.Tensor,
+                   vals: torch.Tensor, nb: int) -> None:
+    """K2 over the shard blocks of one card: one launch of
+    ``delta_scatter_shards``; a package without that form (the one
+    before it) loops the one-block call over the shards."""
+    from tpu_cc_manager_torch.kernels import delta_scatter as KD
+
+    batched = getattr(KD, "delta_scatter_shards", None)
+    if batched is not None:
+        batched(blocks, idx, vals, nb)
+        return
+    rows = nb // len(blocks)
+    for i, block in enumerate(blocks):
+        KD.delta_scatter(block, idx, vals, row0=i * rows)
+
+
+def plan_shards(calls: List[Tuple[torch.Tensor, ...]], num_slices: int,
+                partial: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    """K3 over the shards of one card, each shard's mode histogram in its
+    row of ``partial``: one launch of ``fleet_plan_shards``; a package
+    without that form loops ``fleet_plan`` and copies each row."""
+    from tpu_cc_manager_torch.kernels import fleet_tick as KF
+
+    batched = getattr(KF, "fleet_plan_shards", None)
+    if batched is not None:
+        return batched(calls, num_slices=num_slices, mode_counts=partial)
+    outs = []
+    for i, cols in enumerate(calls):
+        outs.append(KF.fleet_plan(*cols, num_slices=num_slices))
+        partial[i].copy_(outs[-1]["mode_counts"])
+    return outs
+
+
 def check_shard_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
-    """Phase 8 (a), the mesh's entry forms of K2 and K3, each against its
-    plain version: K2 on every shard block of the 1M mesh (a row offset
-    and the shard's width) at kb 16,384 with the first and last row of
-    every shard among the indices plus padding; K3 at the dry run's
-    per-shard shape (8 nodes, 2 local slices) on each of its 8 shards and
-    at its unsharded cross-check (64 nodes, 16 slices)."""
+    """Phase 8 (a), the mesh's forms of K2 and K3, each against its plain
+    version: K2 over the 8 shard blocks of the 1M mesh on one card (one
+    launch) at kb 16,384 with the first and last row of every shard among
+    the indices, indices no shard owns and padding; K3 over the dry run's
+    8 shards (8 nodes, 2 local slices each) on one card (one launch, the
+    mode histograms into the rows of a partial buffer) and at its
+    unsharded cross-check (64 nodes, 16 slices)."""
     from tpu_cc_manager_torch.graft_entry import _example_fleet
     from tpu_cc_manager_torch.kernels.delta_scatter import (
-        delta_scatter, delta_scatter_reference)
+        delta_scatter_reference)
     from tpu_cc_manager_torch.kernels.fleet_tick import (
-        fleet_plan, fleet_plan_reference)
+        N_MODES, fleet_plan, fleet_plan_reference)
     from tpu_cc_manager_torch.plan import bucket_deltas, bucket_nodes
 
     nb, shards = bucket_nodes(SESSION_NODES), MESH_SHARDS
@@ -1110,46 +1283,43 @@ def check_shard_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
     rng = np.random.default_rng(51)
     edges = np.array([r for i in range(shards)
                       for r in (i * rows, (i + 1) * rows - 1)], np.int32)
-    rest = np.setdiff1d(np.arange(SESSION_NODES, dtype=np.int32), edges)
-    idx_h = np.full(kb, nb, np.int32)
-    idx_h[:k] = rng.permutation(np.concatenate(
-        [edges, rng.choice(rest, k - edges.size, replace=False)]))
+    idx_h = scatter_indices(nb, kb, k, rng, must=edges)
     idx = torch.from_numpy(idx_h).to(DEVICE)
     vals = torch.from_numpy(
         rng.integers(-9, 9, (8, kb)).astype(np.int32)).to(DEVICE)
-    got, want, library, err = [], [], [], 0
+    base = [torch.from_numpy(rng.integers(-9, 9, (8, rows)).astype(
+        np.int32)).to(DEVICE) for _ in range(shards)]
+    got = [b.clone() for b in base]
+    want = [b.clone() for b in base]
+    scatter_shards(got, idx, vals, nb)
+    torch.cuda.synchronize()
+    library = []
     for i in range(shards):
-        base = torch.from_numpy(
-            rng.integers(-9, 9, (8, rows)).astype(np.int32)).to(DEVICE)
-        got.append(base.clone())
-        want.append(base.clone())
-        delta_scatter(got[i], idx, vals, row0=i * rows)
-        torch.cuda.synchronize()
         delta_scatter_reference(want[i], idx, vals, row0=i * rows)
-        err = max(err, max_abs_err({"block": got[i]}, {"block": want[i]}))
         require(torch.equal(got[i][:, [0, -1]], vals[:, [
             int(np.nonzero(idx_h == i * rows + r)[0][0])
             for r in (0, rows - 1)]]), f"shard {i}: an edge row was lost")
         live = (idx_h >= i * rows) & (idx_h < (i + 1) * rows)
         sel = torch.from_numpy(np.nonzero(live)[0]).to(DEVICE)
         library.append((want[i], idx[sel].long() - i * rows, vals[:, sel]))
+    err = max_abs_err({f"block{i}": g for i, g in enumerate(got)},
+                      {f"block{i}": w for i, w in enumerate(want)})
     require(err == 0, f"delta_scatter on shards: max |kernel - plain| = {err}")
 
-    def scatter(fn: Callable[..., None], blocks: List[torch.Tensor]) -> None:
-        for i, block in enumerate(blocks):
-            fn(block, idx, vals, row0=i * rows)
+    def plain() -> None:
+        for i, block in enumerate(want):
+            delta_scatter_reference(block, idx, vals, row0=i * rows)
 
-    # each launch reads every index; only its live slots' values move
-    moved = shards * 4 * kb + 2 * 4 * 8 * k
     k2 = {"shape": f"kb{kb}_{shards}x{rows}", "kb": kb, "live": k,
           "shards": shards, "shard_rows": rows, "max_abs_err": err,
-          "ms": device_ms(lambda: scatter(delta_scatter, got)),
-          "plain_ms": device_ms(
-              lambda: scatter(delta_scatter_reference, want)),
+          "ms": device_ms(lambda: scatter_shards(got, idx, vals, nb)),
+          "plain_ms": device_ms(plain),
           "library_ms": device_ms(lambda: [
               block.__setitem__((slice(None), local), v)
               for block, local, v in library]),
-          "bound_ms": 1e3 * moved / rate, "bound_by": "bytes"}
+          "bound_ms": k2_bound_ms(kb, k, rate), "bound_by": "bytes",
+          "profile": kernels_per_call(
+              lambda: scatter_shards(got, idx, vals, nb))}
     finding(kernel="delta_scatter", **k2)
 
     per_shard, n_slices = 8, 2
@@ -1157,40 +1327,52 @@ def check_shard_kernels(rate: float) -> Tuple[List[dict], List[dict]]:
                                           device=DEVICE)
     local_ids = torch.arange(n_slices, dtype=torch.int32, device=DEVICE
                              ).repeat_interleave(per_shard // n_slices)
-    cases = [(f"n{per_shard}_s{n_slices}_{shards}x", [
-        (desired[i * per_shard:(i + 1) * per_shard],
-         observed[i * per_shard:(i + 1) * per_shard], local_ids, n_slices)
-        for i in range(shards)])]
+    calls = [(desired[i * per_shard:(i + 1) * per_shard],
+              observed[i * per_shard:(i + 1) * per_shard], local_ids)
+             for i in range(shards)]
+    partial = torch.empty((shards, N_MODES), dtype=torch.int32,
+                          device=DEVICE)
+    outs = plan_shards(calls, n_slices, partial)
+    torch.cuda.synchronize()
+    wants = [fleet_plan_reference(*c, num_slices=n_slices) for c in calls]
+    err = max(max_abs_err(o, w) for o, w in zip(outs, wants))
+    err = max(err, max_abs_err(
+        {"partial": partial},
+        {"partial": torch.stack([w["mode_counts"] for w in wants])}))
+    require(err == 0, f"fleet_plan on {shards} shards: max |kernel - plain| "
+            f"= {err}")
+    bound, by = k3_bound_ms(per_shard * shards, n_slices, shards, rate)
+    batch = {"shape": f"n{per_shard}_s{n_slices}_{shards}x",
+             "n": per_shard * shards, "slots": n_slices, "shards": shards,
+             "max_abs_err": err,
+             "ms": device_ms(lambda: plan_shards(calls, n_slices, partial)),
+             "plain_ms": device_ms(lambda: [
+                 fleet_plan_reference(*c, num_slices=n_slices)
+                 for c in calls]),
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "profile": kernels_per_call(lambda: plan_shards(calls, n_slices,
+                                                     partial))}
+    finding(kernel="fleet_plan", **batch)
+
+    s = n_slices * shards
     global_ids = torch.cat([local_ids + i * n_slices for i in range(shards)])
-    cases.append((f"n{per_shard * shards}_s{n_slices * shards}",
-                  [(desired, observed, global_ids, n_slices * shards)]))
-    k3 = []
-    for name, calls in cases:
-        err = 0
-        for d, o, ids, s in calls:
-            out = fleet_plan(d, o, ids, num_slices=s)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(
-                out, fleet_plan_reference(d, o, ids, num_slices=s)))
-        require(err == 0, f"fleet_plan {name}: max |kernel - plain| = {err}")
-        t_bytes = sum(3 * 4 * d.numel() + 2 * d.numel() + 2 * s + 4 * 12
-                      for d, _, _, s in calls) / rate
-        t_ops = sum(d.numel() for d, _, _, _ in calls) * K1_OPS_PER_ROW / (
-            PEAK_SCALAR_OPS)
-        row = {"shape": name, "launches_per_call": len(calls),
-               "max_abs_err": err,
-               "ms": device_ms(lambda: [fleet_plan(d, o, i, num_slices=s)
-                                        for d, o, i, s in calls]),
-               "plain_ms": device_ms(lambda: [
-                   fleet_plan_reference(d, o, i, num_slices=s)
-                   for d, o, i, s in calls]),
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        finding(kernel="fleet_plan", **row)
-        k3.append(row)
-    del got, want, library
+    got3 = fleet_plan(desired, observed, global_ids, num_slices=s)
+    torch.cuda.synchronize()
+    err = max_abs_err(got3, fleet_plan_reference(desired, observed,
+                                                 global_ids, num_slices=s))
+    require(err == 0, f"fleet_plan cross-check: max |kernel - plain| = {err}")
+    bound, by = k3_bound_ms(per_shard * shards, s, 1, rate)
+    cross = {"shape": f"n{per_shard * shards}_s{s}",
+             "n": per_shard * shards, "slots": s, "max_abs_err": err,
+             "ms": device_ms(lambda: fleet_plan(desired, observed,
+                                                global_ids, num_slices=s)),
+             "plain_ms": device_ms(lambda: fleet_plan_reference(
+                 desired, observed, global_ids, num_slices=s)),
+             "bound_ms": bound, "bound_by": by, "library_ms": None}
+    finding(kernel="fleet_plan", **cross)
+    del got, want, base, library
     torch.cuda.empty_cache()
-    return [k2], k3
+    return [k2], [batch, cross]
 
 
 def stale_firm(ev_ts: np.ndarray, clocks: List[int], stale_s: int,
@@ -1459,15 +1641,54 @@ def fleet_controller_phase(tmp: str, n_nodes: int = FLEET_NODES,
             "cli_rc": proc.returncode, "reports_equal": True}
 
 
+def expect_scatters(sess: Any) -> None:
+    """K2 launched once per card per incremental tick in a
+    :func:`mesh_session_phase` (launch counts set to 0 before it): on the
+    sharded session's cards, and once on the 1-shard one."""
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+
+    cards = len({block.device for block in sess._shards})
+    want = MESH_INCR_TICKS * (cards + 1)
+    require(LAUNCHES["delta_scatter"] == want,
+            f"{LAUNCHES['delta_scatter']} delta_scatter launches in "
+            f"{MESH_INCR_TICKS} incremental ticks of a {len(sess._shards)}-"
+            f"shard session on {cards} card(s) and a 1-shard one, not {want}")
+
+
+def dryrun_phase(shards: int) -> dict:
+    """``graft_entry.dryrun_multichip(shards)`` on the card(s), with its
+    launches: K3 once per card plus the cross-check, and K4 once."""
+    from tpu_cc_manager_torch.graft_entry import dryrun_multichip
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+    from tpu_cc_manager_torch.plan import _shard_devices
+
+    cards = len(set(_shard_devices(DEVICE, shards)))
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    needs_flip, mode_counts, coherent = dryrun_multichip(shards, DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    require(launches["fleet_plan"] == cards + 1
+            and launches["mesh_combine"] == 1,
+            f"dry run over {shards} shards on {cards} card(s) launched "
+            f"{launches}: K3 once per card plus the cross-check, K4 once")
+    dryrun = {"shards": shards, "cards": cards, "seconds": seconds,
+              "launches": launches, "mode_counts": mode_counts.tolist(),
+              "needs_flip": int(needs_flip.sum()),
+              "slices_coherent": int(coherent.sum())}
+    finding(phase="dryrun_multichip", **dryrun)
+    return dryrun
+
+
 def mesh_phase(rate: float, tmp: str) -> Tuple[dict, Dict[str, int]]:
     """Phase 8 (b) to (e); launch counts from 0 before (b) to after
     (d)."""
     from tpu_cc_manager_torch.device.cudadev import CudaBackend
-    from tpu_cc_manager_torch.graft_entry import dryrun_multichip
     from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
 
     reset_launches()
     session, sess, enc = mesh_session_phase(MESH_SHARDS)
+    expect_scatters(sess)
     # the restart analog (a flip's reset) leaves the resident shard
     # blocks as they were, and the session still verifies after it
     before = [block.clone() for block in sess._shards]
@@ -1481,13 +1702,7 @@ def mesh_phase(rate: float, tmp: str) -> Tuple[dict, Dict[str, int]]:
     del before
     session["verified_after_reset"] = True
     finding(phase="mesh_session", **session)
-    t0 = time.perf_counter()
-    needs_flip, mode_counts, coherent = dryrun_multichip(MESH_SHARDS, DEVICE)
-    dryrun = {"shards": MESH_SHARDS, "seconds": time.perf_counter() - t0,
-              "mode_counts": mode_counts.tolist(),
-              "needs_flip": int(needs_flip.sum()),
-              "slices_coherent": int(coherent.sum())}
-    finding(phase="dryrun_multichip", **dryrun)
+    dryrun = dryrun_phase(MESH_SHARDS)
     fleet = fleet_controller_phase(tmp)
     finding(phase="fleet_controller", **fleet)
     torch.cuda.synchronize()
@@ -1510,8 +1725,13 @@ def multi_card_phase() -> dict:
                  "why": f"{cards} CUDA device visible: phase (e) spreads "
                         "2 shards per card over two cards or more"}
     else:
+        from tpu_cc_manager_torch.kernels import reset_launches
+
+        reset_launches()
         multi, sess, _ = mesh_session_phase(2 * cards)
+        expect_scatters(sess)
         multi["split"] = mesh_split(sess)
+        multi["dryrun"] = dryrun_phase(2 * cards)
         multi["ran"] = True
     finding(phase="mesh_multi_card", cards=cards, **multi)
     return multi
@@ -1530,7 +1750,7 @@ KERNELS = {
                    "tpu_cc_manager/plan.py:790"),
     "delta_scatter": ("tpu_cc_manager_torch/csrc/delta_scatter.cu",
                       "tpu_cc_manager/plan.py:1075"),
-    "fleet_plan": ("tpu_cc_manager_torch/csrc/fleet_tick.cu",
+    "fleet_plan": ("tpu_cc_manager_torch/csrc/fleet_plan.cu",
                    "tpu_cc_manager/plan.py:689"),
     "probe_add_one": ("tpu_cc_manager_torch/csrc/probe.cu",
                       "tpu_cc_manager/device/jaxdev.py:260"),
@@ -1572,10 +1792,10 @@ def setup() -> Tuple[str, Any, float, float]:
 
 
 def k1_phase(rate: float) -> Dict[str, List[dict]]:
-    """Phase 2's K1 work: K1, K3 and K1's partial form (with K4 over the
+    """Phase 2's K1 work: K1 and K1's partial form (with K4 over the
     partials) against their plain versions, and the per-launch split of
     K1 and its partial form on its own line."""
-    measured = {"fleet_tick": check_k1(rate), "fleet_plan": check_k3(rate)}
+    measured = {"fleet_tick": check_k1(rate)}
     measured["fleet_tick_partial"], measured["mesh_combine"] = (
         check_mesh_kernels(rate))
     split = {r["shape"]: r["split"] or "not measured"
@@ -1592,6 +1812,7 @@ def run() -> None:
     set_mesh(1)
     smi, _lib, rate, floor = setup()
     measured = k1_phase(rate)
+    measured["fleet_plan"] = check_k3(rate)
     measured["delta_scatter"] = check_k2(rate)
 
     reset_launches()
@@ -1605,6 +1826,12 @@ def run() -> None:
             session=session, entry_shapes=shapes)
     for name in PLANNER_KERNELS:
         require(launches[name] > 0, f"the main path never launched {name}")
+    # one K2 launch per incremental tick on one shard, one K3 per entry()
+    require(launches["delta_scatter"] == INCR_TICKS,
+            f"{launches['delta_scatter']} delta_scatter launches on the main "
+            f"path, not one per incremental tick ({INCR_TICKS})")
+    require(launches["fleet_plan"] == 1,
+            f"{launches['fleet_plan']} fleet_plan launches for one entry()")
 
     split_full_tick(synthetic_encoding(FLEET_NODES), "100k")
     split_full_tick(enc, "1m")
@@ -1662,6 +1889,22 @@ def run_k1() -> None:
     print(smi, flush=True)
 
 
+def run_k2k3() -> None:
+    """``--k2k3``: phase 1 and the K2 and K3 checks of phases 2 and 8 (a)
+    alone, with the crossover of K3's two routes, for comparing two
+    versions of K2 and K3 inside one chip call."""
+    set_mesh(1)
+    smi, _lib, rate, _floor = setup()
+    check_k2(rate)
+    check_k3(rate)
+    from tpu_cc_manager_torch.kernels import fleet_tick as KF
+
+    if hasattr(KF, "_plan_route"):
+        k3_crossover()
+    check_shard_kernels(rate)
+    print(smi, flush=True)
+
+
 def run_multi_card() -> None:
     """``--multi-card``: phase 8 (e) alone, on every visible card."""
     from tpu_cc_manager_torch.kernels import _build
@@ -1677,12 +1920,13 @@ def run_multi_card() -> None:
     print(smi, flush=True)
 
 
-MODES = {(): run, ("--k1",): run_k1, ("--multi-card",): run_multi_card}
+MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
+         ("--multi-card",): run_multi_card}
 
 
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
-        print("usage: python3 chip_smoke.py [--k1 | --multi-card]",
+        print("usage: python3 chip_smoke.py [--k1 | --k2k3 | --multi-card]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

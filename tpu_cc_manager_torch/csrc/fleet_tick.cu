@@ -2,9 +2,10 @@
 //
 // Replaces tpu_cc_manager/plan.py::fleet_tick (plan.py:790-884) with its
 // slice math, _slice_outputs (:664-686) and _seg_minmax (:655-661), which
-// the JAX package runs as a jitted shard_map XLA program. The same launch
-// serves plan.py::fleet_plan (:689-725): valid = 1 on every row, one pool,
-// and num_slots = num_slices.
+// the JAX package runs as a jitted shard_map XLA program. K3
+// (plan.py::fleet_plan, :689-725) has its own one-CTA kernel
+// (fleet_plan.cu); past that kernel's limits it takes this one, with
+// valid = 1 on every row, one pool and num_slots = num_slices.
 //
 // What bounds it on an H100: bytes. A row reads its 8 int32 columns (32 B)
 // and writes 7 mask bytes; its arithmetic is a few dozen integer compares
@@ -29,9 +30,9 @@
 //   tick_rows      each thread takes 4 consecutive rows: one 16-byte load
 //                  per column and one 4-byte store per mask row when the
 //                  row count is a multiple of 4 and the block is 16-byte
-//                  aligned, else the same rows one by one (K3's sizes, a
-//                  block at an offset). What the rows add to the slots,
-//                  pools and pool x mode bins is aggregated before any
+//                  aligned, else the same rows one by one (a ragged row
+//                  count, a block at an offset). What the rows add to the
+//                  slots, pools and pool x mode bins is aggregated before any
 //                  atomic: a thread folds its rows that share a key, then
 //                  the lanes of a warp that hold one key in a run reduce
 //                  it with warp shuffles, and the run's first lane writes
@@ -70,6 +71,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "warp_runs.cuh"
 
 namespace {
 
@@ -121,58 +124,14 @@ __global__ void tick_init(int32_t* __restrict__ agg, int agg_len,
   }
 }
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// Lanes group by runs: the lanes from one whose key differs from its left
-// neighbour's (a run head) up to the next head. Rows come in order, so
-// the lanes that share a slice or a pool sit next to each other; equal
-// keys apart from each other still give the exact result, as separate
-// runs that each write. Returns the heads, one bit per lane.
-__device__ __forceinline__ unsigned run_heads(int key) {
-  const int lane = threadIdx.x & 31;
-  const int prev = __shfl_up_sync(kFull, key, 1);
-  return __ballot_sync(kFull, lane == 0 || prev != key);
-}
-
-struct Min {
-  __device__ int operator()(int a, int b) const { return min(a, b); }
-};
-struct Max {
-  __device__ int operator()(int a, int b) const { return max(a, b); }
-};
-struct Or {
-  __device__ unsigned operator()(unsigned a, unsigned b) const {
-    return a | b;
-  }
-};
-struct Add {
-  __device__ unsigned operator()(unsigned a, unsigned b) const {
-    return a + b;
-  }
-};
-
-// `v` reduced over this lane's run, valid on the run's head: a segmented
-// tree of full-warp shuffles, whose cost does not grow with the number of
-// runs (a reduction over each run's own lane mask is issued once per run).
-// Nothing to do when every lane is its own run.
-template <typename T, typename Op>
-__device__ __forceinline__ T run_reduce(T v, unsigned heads, Op op) {
-  if (heads == kFull) return v;
-  const int lane = threadIdx.x & 31;
-  const unsigned above = heads & ~(kFull >> (31 - lane));
-  const int end = above ? __ffs(above) - 1 : 32;  // next head, exclusive
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const T o = __shfl_down_sync(kFull, v, d);
-    if (lane + d < end) v = op(v, o);
-  }
-  return v;
-}
-
-// True where this lane heads its run and has something to write.
-__device__ __forceinline__ bool writes(int key, unsigned heads) {
-  return key >= 0 && ((heads >> (threadIdx.x & 31)) & 1u);
-}
+using warp_runs::Add;
+using warp_runs::kFull;
+using warp_runs::Max;
+using warp_runs::Min;
+using warp_runs::Or;
+using warp_runs::run_heads;
+using warp_runs::run_reduce;
+using warp_runs::writes;
 
 // What a run of rows adds to one slot: desired and observed min/max, and
 // the at-target bits (1: some row at target, 2: some row not).

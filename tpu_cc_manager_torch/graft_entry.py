@@ -3,15 +3,16 @@
 The counterparts of ``__graft_entry__.py``: the planner is the system's
 flagship program.
 
-- ``entry()`` returns its legacy core, ``fleet_plan`` (kernel K3: K1 with
-  every row valid and one pool), with example inputs shaped like a
-  256-node / 16-slice fleet on the planner's device.
+- ``entry()`` returns its legacy core, ``fleet_plan`` (kernel K3), with
+  example inputs shaped like a 256-node / 16-slice fleet on the
+  planner's device.
 - ``dryrun_multichip(n)`` shards a small fleet over n shards placed
   round-robin on the visible cards (all on one card when there is one),
-  runs K3 on each shard with its local slices, sums the shards'
-  ``mode_counts`` with K4's counts-only form on shard 0's card (the
-  reference's ``psum``), and checks the result against one unsharded K3
-  over the global slice ids.
+  runs K3 on every shard with its local slices, one launch per card
+  (``fleet_plan_shards``), sums the shards' ``mode_counts`` with K4's
+  counts-only form on shard 0's card (the reference's ``psum``), and
+  checks the result against one unsharded K3 over the global slice ids.
+  On one card that is three launches.
 
 The same numpy seeds give the same fleets as the reference's.
 """
@@ -24,9 +25,12 @@ from typing import Callable, Dict, Tuple, Union
 import numpy as np
 import torch
 
+from tpu_cc_manager_torch.kernels.fleet_tick import (
+    MAX_PLAN_SHARDS, fleet_plan_shards,
+)
 from tpu_cc_manager_torch.kernels.mesh_combine import mesh_sum
 from tpu_cc_manager_torch.plan import (
-    _DISPATCH_LOCK, MODE_CODES, N_MODES, _planner_device,
+    _DISPATCH_LOCK, MODE_CODES, N_MODES, _by_device, _planner_device,
     _shard_devices, fleet_plan,
 )
 
@@ -64,9 +68,12 @@ def dryrun_multichip(n_devices: int,
     mode_counts, slice_coherent)`` as numpy arrays: the per-node mask and
     the per-local-slice verdicts concatenated in shard order, and the
     fleet's mode histogram. Raises ``AssertionError`` when the sharded
-    step and the unsharded one disagree."""
-    if n_devices < 1:
-        raise ValueError(f"dryrun_multichip: {n_devices} shards")
+    step and the unsharded one disagree. At most 64 shards, as the
+    planner's mesh (one K3 launch takes up to 64)."""
+    if not 1 <= n_devices <= MAX_PLAN_SHARDS:
+        raise ValueError(
+            f"dryrun_multichip: {n_devices} shards; the planner's mesh "
+            f"takes 1 to {MAX_PLAN_SHARDS}")
     root = _planner_device(device)
     mesh = _shard_devices(root, n_devices)
     # 8 nodes and 2 slices per shard; slices are shard-local (a slice's
@@ -79,21 +86,32 @@ def dryrun_multichip(n_devices: int,
     slice_local = np.repeat(np.arange(slices_per_dev, dtype=np.int32),
                             nodes_per_dev // slices_per_dev)
     local_ids = torch.from_numpy(slice_local)
-    flips, coherent = [], []
     partial = torch.empty((n_devices, N_MODES), dtype=torch.int32,
                           device=root)
+    plans = [None] * n_devices
     with _DISPATCH_LOCK:
-        for i, dev in enumerate(mesh):
-            rows = slice(i * nodes_per_dev, (i + 1) * nodes_per_dev)
-            local = fleet_plan(desired[rows].to(dev), observed[rows].to(dev),
-                               local_ids.to(dev), num_slices=slices_per_dev)
-            partial[i].copy_(local["mode_counts"])
-            flips.append(local["needs_flip"])
-            coherent.append(local["slice_coherent"])
+        # one K3 launch per card over its shards; on shard 0's card with
+        # every shard, the launch writes the partial rows in place, else
+        # each card's rows are copied there, as the mesh tick's are
+        for dev, ids in _by_device(mesh).items():
+            d, o, ids_dev = (t.to(dev) for t in (desired, observed,
+                                                  local_ids))
+            cols = [(d[i * nodes_per_dev:(i + 1) * nodes_per_dev],
+                     o[i * nodes_per_dev:(i + 1) * nodes_per_dev], ids_dev)
+                    for i in ids]
+            in_place = dev == root and len(ids) == n_devices
+            out = fleet_plan_shards(cols, num_slices=slices_per_dev,
+                                    mode_counts=partial if in_place else None)
+            for i, plan_i in zip(ids, out):
+                if not in_place:
+                    partial[i].copy_(plan_i["mode_counts"])
+                plans[i] = plan_i
         # fleet-wide aggregates: K4's counts-only form, the psum
         mode_counts = mesh_sum(partial).cpu().numpy()
-        needs_flip = np.concatenate([f.cpu().numpy() for f in flips])
-        slice_coherent = np.concatenate([c.cpu().numpy() for c in coherent])
+        needs_flip = np.concatenate(
+            [p["needs_flip"].cpu().numpy() for p in plans])
+        slice_coherent = np.concatenate(
+            [p["slice_coherent"].cpu().numpy() for p in plans])
 
     # cross-check against the unsharded computation over global slice ids
     global_ids = np.concatenate(

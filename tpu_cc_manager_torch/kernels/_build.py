@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with :mod:`ctypes`. Each source
-compiles in its own ``nvcc`` process, all started together, and one more
-call links the objects. The build happens at first use, into
-``tpu_cc_manager_torch/_build/<digest>/``, where the digest hashes the
-sources and the flags: an unchanged checkout loads the library it built
-before, and any edit builds afresh. The sources in the package are the
-only input.
+``csrc/*.cu`` (with the headers they include) compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+:mod:`ctypes`. Each source compiles in its own ``nvcc`` process, all
+started together, and one more call links the objects. The build happens
+at first use, into ``tpu_cc_manager_torch/_build/<digest>/``, where the
+digest hashes the sources, their headers and the flags: an unchanged
+checkout loads the library it built before, and any edit builds afresh.
+The sources in the package are the only input.
 """
 
 from __future__ import annotations
@@ -26,8 +26,10 @@ from typing import Dict, List, Optional, Union
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("runtime.cu", "fleet_tick.cu", "delta_scatter.cu", "probe.cu",
-           "mesh_combine.cu")
+SOURCES = ("runtime.cu", "fleet_tick.cu", "fleet_plan.cu", "delta_scatter.cu",
+           "probe.cu", "mesh_combine.cu")
+#: headers the sources include; hashed with them
+HEADERS = ("warp_runs.cuh",)
 LIB_NAME = "libtpu_cc_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -65,7 +67,7 @@ def source_digest() -> str:
     h = hashlib.sha256()
     for flag in COMPILE_FLAGS:
         h.update(flag.encode() + b"\0")
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + b"\0")
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -120,7 +122,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tcc_fleet_tick.restype = i
     lib.tcc_fleet_tick_partial.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
     lib.tcc_fleet_tick_partial.restype = i
-    lib.tcc_delta_scatter.argtypes = [p, i, p, p, i, i, p]
+    i64 = ctypes.c_longlong
+    lib.tcc_fleet_plan.argtypes = [p, i, i, i64, p, p, p, p, p]
+    lib.tcc_fleet_plan.restype = i
+    lib.tcc_delta_scatter.argtypes = [p, i, i, i64, i64, p, p, i, p]
     lib.tcc_delta_scatter.restype = i
     lib.tcc_mesh_combine.argtypes = [p, p, i, i, i, p, p, p]
     lib.tcc_mesh_combine.restype = i

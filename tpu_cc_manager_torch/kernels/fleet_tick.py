@@ -1,12 +1,13 @@
-"""K1, the fleet tick kernel, and K3, the legacy ``fleet_plan`` on it.
+"""K1, the fleet tick kernel, and K3, the legacy ``fleet_plan``.
 
 Replaces ``tpu_cc_manager/plan.py::fleet_tick`` (plan.py:790-884, with
 ``_slice_outputs`` :664-686 and ``_seg_minmax`` :655-661) and
 ``plan.py::fleet_plan`` (:689-725), jitted XLA programs in the JAX
-package, with the CUDA kernel in ``csrc/fleet_tick.cu``.
+package, with the CUDA kernels in ``csrc/fleet_tick.cu`` (K1) and
+``csrc/fleet_plan.cu`` (K3).
 
-Bound on an H100: bytes. Each row reads 32 B of columns and writes 7 mask
-bytes; the arithmetic is a few dozen integer operations. At
+K1's bound on an H100: bytes. Each row reads 32 B of columns and writes
+7 mask bytes; the arithmetic is a few dozen integer operations. At
 nb = 1,048,576 that is 41 MiB, about 13 us at 3.35 TB/s; the kernel also
 moves its [6, num_slots] slot scratch. Design: three launches (init, row
 pass, epilogue). The row pass gives each thread 4 rows (16-byte column
@@ -15,8 +16,7 @@ loads when the block is 16-byte aligned and its row count a multiple of
 rows add to a slot, a pool or a pool x mode bin before any atomic: per
 thread, then per run of lanes with one key, so a hot slot or one pool
 costs one atomic per warp instead of one per row. The details and the
-index rules it keeps: the head of ``csrc/fleet_tick.cu``. Times on the
-card: PERF.md.
+index rules it keeps: the head of ``csrc/fleet_tick.cu``.
 
 :func:`fleet_tick_partial` is K1's partial form for one shard of a
 mesh: the row pass over the shard's rows with the global slot and pool
@@ -24,16 +24,25 @@ widths, its raw counts and slot min/max written into the shard's row of
 the mesh's partial buffers, no epilogue. K4 (``kernels/mesh_combine.py``)
 combines the shards' rows.
 
-:func:`fleet_tick_block` and :func:`fleet_plan` launch the kernel for a
-CUDA tensor and run the plain PyTorch version (:func:`fleet_tick_reference`)
-for a CPU tensor; any other device raises. Outputs stay on the input's
-device: ``bool`` masks and verdicts, ``int32`` counts, under the JAX
-package's keys.
+K3's bound on an H100: launch overhead (a few KB at its callers' shapes).
+Design: one CTA per shard reads the three columns in place and keeps the
+slots and histograms in shared memory, and a batch of shards
+(:func:`fleet_plan_shards`, the dry run's shards on one card) is one
+launch. Past the one-CTA kernel's limits (:func:`_plan_route`: the slots
+shared memory holds, and the rows where K1's multi-CTA route becomes
+faster) K3 runs K1 on a block of its columns. Times on the card: PERF.md.
+
+The wrappers launch the kernels for CUDA tensors and run the plain
+PyTorch versions (:func:`fleet_tick_reference`, :func:`fleet_plan_reference`
+and their forms) for CPU tensors; any other device raises. Outputs stay on
+the input's device: ``bool`` masks and verdicts, ``int32`` counts, under
+the JAX package's keys.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -242,15 +251,6 @@ def _plan_block(desired: torch.Tensor, observed: torch.Tensor,
                 slice_ids: torch.Tensor) -> torch.Tensor:
     """The K1 block for ``fleet_plan``'s three columns: pool 0, no taint,
     doctor unreported, no evidence, every row valid."""
-    for name, col in (("desired", desired), ("observed", observed),
-                      ("slice_ids", slice_ids)):
-        if (col.dtype != torch.int32 or col.dim() != 1
-                or col.shape != desired.shape
-                or col.device != desired.device):
-            raise ValueError(
-                f"fleet_plan: {name} must be int32 [n] on one device with "
-                f"the others, got {col.dtype} {tuple(col.shape)} on "
-                f"{col.device}")
     block = torch.zeros((N_COLS, desired.shape[0]), dtype=torch.int32,
                         device=desired.device)
     block[0] = desired
@@ -264,27 +264,166 @@ def _plan_block(desired: torch.Tensor, observed: torch.Tensor,
 _PLAN_KEYS = ("needs_flip", "failed", "mode_counts", "desired_counts",
               "slice_coherent", "slice_half_flipped")
 
+#: K3's one-CTA kernel keeps 6 int32 per slot and its two histograms in
+#: one CTA's shared memory (csrc/fleet_plan.cu)
+MAX_PLAN_SLOTS = (SMEM_LIMIT_BYTES // 4 - 2 * N_MODES) // 6
+#: the most rows per shard K3's one-CTA kernel takes: past them K1's
+#: multi-CTA route is faster on an H100 (the crossover ``chip_smoke.py
+#: --k2k3`` measures; PERF.md)
+MAX_PLAN_ROWS = 16_384
+#: shards one K3 launch takes, in its parameter struct; the planner's mesh
+#: has at most 64 (plan.BUCKET_MIN_NODES)
+MAX_PLAN_SHARDS = 64
+
+#: int64 entries per shard in the launch's table: the addresses of
+#: desired, observed and slice_ids, the shard's first mask column, its rows
+PLAN_TABLE_FIELDS = 5
+
+#: (desired, observed, slice_ids): one shard's three int32 [n] columns
+PlanColumns = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _plan_route(n: int, num_slices: int) -> str:
+    """K3's route for shards of at most ``n`` rows over ``num_slices``
+    slots: ``"cta"``, the one-CTA kernel (``csrc/fleet_plan.cu``), inside
+    both of its limits; else ``"k1"``, K1's multi-CTA kernel on the
+    :func:`_plan_block` of each shard."""
+    return ("cta" if n <= MAX_PLAN_ROWS and num_slices <= MAX_PLAN_SLOTS
+            else "k1")
+
+
+def _check_plan(shards: Sequence[PlanColumns], num_slices: int,
+                mode_counts: Optional[torch.Tensor]) -> torch.device:
+    if not 1 <= len(shards) <= MAX_PLAN_SHARDS:
+        raise ValueError(
+            f"fleet_plan: {len(shards)} shards; one launch takes 1 to "
+            f"{MAX_PLAN_SHARDS}")
+    dev = shards[0][0].device
+    for cols in shards:
+        for name, col in zip(("desired", "observed", "slice_ids"), cols):
+            if (col.dtype != torch.int32 or col.dim() != 1
+                    or col.shape != cols[0].shape or col.device != dev
+                    or not col.is_contiguous()):
+                raise ValueError(
+                    f"fleet_plan: {name} must be a contiguous int32 [n] "
+                    f"tensor on {dev} with the others, got {col.dtype} "
+                    f"{tuple(col.shape)} on {col.device}")
+        if cols[0].shape[0] > _INT32_MAX:
+            raise ValueError(
+                f"fleet_plan: {cols[0].shape[0]} rows exceed int32")
+    if not 1 <= num_slices <= _INT32_MAX:
+        raise ValueError(f"fleet_plan: num_slices={num_slices}")
+    if mode_counts is not None and (
+            mode_counts.dtype != torch.int32
+            or tuple(mode_counts.shape) != (len(shards), N_MODES)
+            or not mode_counts.is_contiguous() or mode_counts.device != dev):
+        raise ValueError(
+            "fleet_plan: mode_counts must be a contiguous int32 "
+            f"[{len(shards)}, {N_MODES}] tensor on {dev}, got "
+            f"{mode_counts.dtype} {tuple(mode_counts.shape)} on "
+            f"{mode_counts.device}")
+    return dev
+
+
+def _into_rows(outs: List[Dict[str, torch.Tensor]],
+               mode_counts: Optional[torch.Tensor]
+               ) -> List[Dict[str, torch.Tensor]]:
+    """Each shard's ``mode_counts`` copied into its row of the caller's
+    buffer, which the outputs then hold."""
+    if mode_counts is not None:
+        for i, out in enumerate(outs):
+            mode_counts[i].copy_(out["mode_counts"])
+            out["mode_counts"] = mode_counts[i]
+    return outs
+
+
+def _launch_plan(shards: Sequence[PlanColumns], num_slices: int,
+                 mode_counts: Optional[torch.Tensor]
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """One launch of K3's one-CTA kernel, one CTA per shard; every output
+    buffer comes from ``torch.empty``, which launches nothing."""
+    dev = shards[0][0].device
+    n_shards = len(shards)
+    rows = [int(cols[0].shape[0]) for cols in shards]
+    masks = torch.empty((2, sum(rows)), dtype=torch.bool, device=dev)
+    hist = torch.empty((2, n_shards, N_MODES), dtype=torch.int32, device=dev)
+    modes = hist[0] if mode_counts is None else mode_counts
+    slice_out = torch.empty((n_shards, 2, num_slices), dtype=torch.bool,
+                            device=dev)
+    fields = PLAN_TABLE_FIELDS
+    table = (ctypes.c_int64 * (fields * n_shards))()
+    offsets, off = [], 0
+    for b, ((desired, observed, slice_ids), n) in enumerate(zip(shards,
+                                                                 rows)):
+        table[fields * b:fields * (b + 1)] = [
+            desired.data_ptr(), observed.data_ptr(), slice_ids.data_ptr(),
+            off, n]
+        offsets.append(off)
+        off += n
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.tcc_fleet_plan(
+            table, n_shards, num_slices, sum(rows), masks.data_ptr(),
+            modes.data_ptr(), hist[1].data_ptr(), slice_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fleet_plan launch")
+    return [{"needs_flip": masks[0, o:o + n], "failed": masks[1, o:o + n],
+             "mode_counts": modes[b], "desired_counts": hist[1, b],
+             "slice_coherent": slice_out[b, 0],
+             "slice_half_flipped": slice_out[b, 1]}
+            for b, (o, n) in enumerate(zip(offsets, rows))]
+
+
+def _plan_on_k1(desired: torch.Tensor, observed: torch.Tensor,
+                slice_ids: torch.Tensor,
+                num_slices: int) -> Dict[str, torch.Tensor]:
+    """K3 past the one-CTA kernel's limits: K1 with valid = 1, one pool
+    and ``num_slices`` slots, over the :func:`_plan_block`."""
+    block = _plan_block(desired, observed, slice_ids)
+    target = torch.zeros(1, dtype=torch.int32, device=block.device)
+    _check_block(block, target, 1, num_slices)
+    out = _launch(block, target, 0, 0, 1, num_slices)
+    return {key: out[key] for key in _PLAN_KEYS}
+
+
+def fleet_plan_shards(shards: Sequence[PlanColumns], *, num_slices: int,
+                      mode_counts: Optional[torch.Tensor] = None
+                      ) -> List[Dict[str, torch.Tensor]]:
+    """K3 over a batch of shards on one device, each ``(desired,
+    observed, slice_ids)`` (``int32[n_i]``, contiguous) planned on its own
+    over ``num_slices`` slots: one dict of ``fleet_plan``'s outputs per
+    shard. With ``mode_counts`` (``int32[len(shards), N_MODES]``) the
+    kernel writes shard i's mode histogram into its row i, and the
+    outputs hold those rows. On CUDA tensors one launch of the one-CTA
+    kernel serves the batch inside :func:`_plan_route`'s limits; past
+    them each shard takes K1's route. Runs
+    :func:`fleet_plan_shards_reference` for CPU tensors."""
+    dev = _check_plan(shards, num_slices, mode_counts)
+    if dev.type == "cpu":
+        return fleet_plan_shards_reference(shards, num_slices=num_slices,
+                                           mode_counts=mode_counts)
+    if dev.type != "cuda":
+        raise ValueError(f"fleet_plan: no kernel for {dev}")
+    n_max = max(int(cols[0].shape[0]) for cols in shards)
+    if _plan_route(n_max, num_slices) == "cta":
+        out = _launch_plan(shards, num_slices, mode_counts)
+        LAUNCHES["fleet_plan"] += 1
+        return out
+    outs = []
+    for cols in shards:
+        outs.append(_plan_on_k1(*cols, num_slices))
+        LAUNCHES["fleet_plan"] += 1
+    return _into_rows(outs, mode_counts)
+
 
 def fleet_plan(desired: torch.Tensor, observed: torch.Tensor,
                slice_ids: torch.Tensor, *,
                num_slices: int) -> Dict[str, torch.Tensor]:
     """K3, the legacy core (``plan.py::fleet_plan``): divergence, the two
     mode histograms and the slice audit over ``num_slices`` slots, with
-    every row counted. K1 with valid = 1, one pool and the slot width set
-    to ``num_slices``; launches it for CUDA tensors, runs
-    :func:`fleet_plan_reference` for CPU tensors."""
-    block = _plan_block(desired, observed, slice_ids)
-    target = torch.zeros(1, dtype=torch.int32, device=block.device)
-    _check_block(block, target, 1, num_slices)
-    if block.device.type == "cpu":
-        out = fleet_tick_reference(block, target, 0, 0, num_pools=1,
-                                   num_slots=num_slices)
-    elif block.device.type == "cuda":
-        out = _launch(block, target, 0, 0, 1, num_slices)
-        LAUNCHES["fleet_plan"] += 1
-    else:
-        raise ValueError(f"fleet_plan: no kernel for {block.device}")
-    return {key: out[key] for key in _PLAN_KEYS}
+    every row counted: :func:`fleet_plan_shards` on a batch of one."""
+    return fleet_plan_shards([(desired, observed, slice_ids)],
+                             num_slices=num_slices)[0]
 
 
 # ------------------------------------------------------ plain versions
@@ -417,9 +556,21 @@ def fleet_plan_reference(desired: torch.Tensor, observed: torch.Tensor,
                          slice_ids: torch.Tensor, *,
                          num_slices: int) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of K3: :func:`fleet_tick_reference` on
-    the block :func:`fleet_plan` builds."""
+    the K1 block of the three columns (valid = 1, one pool), on any
+    device."""
     block = _plan_block(desired, observed, slice_ids)
     target = torch.zeros(1, dtype=torch.int32, device=block.device)
     out = fleet_tick_reference(block, target, 0, 0, num_pools=1,
                                num_slots=num_slices)
     return {key: out[key] for key in _PLAN_KEYS}
+
+
+def fleet_plan_shards_reference(
+        shards: Sequence[PlanColumns], *, num_slices: int,
+        mode_counts: Optional[torch.Tensor] = None
+) -> List[Dict[str, torch.Tensor]]:
+    """The plain PyTorch version of :func:`fleet_plan_shards`: the loop
+    of :func:`fleet_plan_reference`, each shard's ``mode_counts`` copied
+    into its row of ``mode_counts`` when given."""
+    return _into_rows([fleet_plan_reference(*cols, num_slices=num_slices)
+                       for cols in shards], mode_counts)

@@ -14,11 +14,12 @@ The device side is rewritten:
 
 - **One kernel** (:func:`fleet_tick`): the hand-written CUDA kernel K1
   (``kernels/fleet_tick.py``, ``csrc/fleet_tick.cu``) answers the fleet
-  AND policy questions per tick. ``fleet_plan``, the legacy subset, is
-  the same kernel with every row valid and one pool (K3).
+  AND policy questions per tick. ``fleet_plan``, the legacy subset, has
+  its own one-CTA kernel (K3, ``csrc/fleet_plan.cu``).
 - **Resident block**: :class:`TickSession` keeps the eight columns as
   ``int32[8, nb]`` tensors on the device and writes changed rows into
-  them in place with K2 (``kernels/delta_scatter.py``).
+  them in place with K2 (``kernels/delta_scatter.py``), one launch per
+  card.
 - **Mesh** (:func:`_planner_mesh`): the rows split into S shards, the
   counterpart of the reference's ``shard_map`` mesh. One process drives
   every shard: each runs K1's partial form, and the hand-written kernel
@@ -55,7 +56,7 @@ import torch
 
 from tpu_cc_manager_torch import labels as L
 from tpu_cc_manager_torch.kernels import _build
-from tpu_cc_manager_torch.kernels.delta_scatter import delta_scatter
+from tpu_cc_manager_torch.kernels.delta_scatter import delta_scatter_shards
 from tpu_cc_manager_torch.kernels.fleet_tick import (  # noqa: F401
     check_pool_slots,
     counts_len,
@@ -959,17 +960,27 @@ def _tick_fn(nb: int, pb: int, mesh: Sequence[torch.device]
     return run
 
 
+def _by_device(devices: Sequence[torch.device]
+               ) -> Dict[torch.device, List[int]]:
+    """The shard numbers on each device, in shard order, devices in the
+    order of their first shard."""
+    groups: Dict[torch.device, List[int]] = {}
+    for i, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(i)
+    return groups
+
+
 def _scatter_fn(nb: int, kb: int,
                 mesh: Sequence[torch.device]) -> Callable[..., None]:
     """The delta scatter for one (node-bucket, delta-bucket) geometry on
     ``mesh``: uploads the ``kb``-sized operands once per card and writes
     up to ``kb`` updated rows into the resident shard blocks in place,
-    one K2 launch per shard, each taking only the rows it holds. Padding
-    entries carry index ``nb`` and change nothing. Built once per
-    geometry and cached, like :func:`_eval_fn`."""
+    one K2 launch per card over the shards there, each index going to the
+    shard that holds its row. Padding entries carry index ``nb`` and
+    change nothing. Built once per geometry and cached, like
+    :func:`_eval_fn`."""
     mesh = tuple(mesh)
     key = (nb, kb, mesh)
-    rows = nb // len(mesh)
     with _TICK_LOCK:
         fn = _SCATTER_CACHE.get(key)
         if fn is not None:
@@ -986,12 +997,11 @@ def _scatter_fn(nb: int, kb: int,
             vals_host = torch.from_numpy(
                 np.array(vals, np.int32, copy=True))
             with _DISPATCH_LOCK:
-                operands: Dict[torch.device, tuple] = {}
-                for i, block in enumerate(shards):
-                    dev = block.device
-                    if dev not in operands:
-                        operands[dev] = (idx_host.to(dev), vals_host.to(dev))
-                    delta_scatter(block, *operands[dev], row0=i * rows)
+                for dev, ids in _by_device(
+                        [block.device for block in shards]).items():
+                    delta_scatter_shards(
+                        [shards[i] for i in ids], idx_host.to(dev),
+                        vals_host.to(dev), nb, shard_ids=ids)
 
         _SCATTER_CACHE[key] = run
         return run
