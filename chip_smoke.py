@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the fleet planner on one NVIDIA GPU and check it.
+"""Drive the PyTorch port (the fleet planner, the node's flip and the node
+agent) on one NVIDIA GPU and check it.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -11,7 +12,8 @@ exits non-zero without them, and whenever any phase fails.
 2. Kernels against their plain PyTorch versions, on the card, at the
    shapes the main path gives them: K1 ``fleet_tick`` at 131,072 and
    1,048,576 rows (the 100k bucket pads 24 % of its rows onto slot
-   nb - 1), a padded fleet with empty slots, out-of-range indices, every
+   nb - 1), at phase 9's fleet scan of two nodes (64 rows, 8 pools), a
+   padded fleet with empty slots, out-of-range indices, every
    row in one slot, every row in one pool, a 1M bucket padded at 24 %,
    131,071 rows and a block at a 4-byte storage offset (the row pass's
    scalar path); K1's partial form on the first (unpadded) and the last
@@ -64,6 +66,30 @@ exits non-zero without them, and whenever any phase fails.
    fleet-controller --once`` against a ``FakeApiServer`` of 1,000 nodes;
    (e) with two cards or more, (b) again at 2 shards per card over every
    card.
+9. The node agent on the card, with its mode store in a temporary
+   directory, on one HGX node of 8 GPU-consuming pods beside a second
+   node of 8 that must not be touched: (a) ``CCManagerAgent`` over a
+   ``FakeKube`` with ``drain_strategy="node"`` and ``CudaBackend`` on
+   every card, driven on → off → devtools from another thread
+   (``run(max_reconciles=3)``, 8 pods rescheduled before each flip);
+   after each reconcile the state label and ``get_modes()`` agree, the
+   node was cordoned and tainted during the flip and is neither after
+   it, its 8 pods were evicted and the other node's are untouched,
+   ``runtime_gen`` advanced once, K5 launched at least once per card,
+   and the evidence names every card's PCI path and the mode; one
+   ``agent_reconcile`` line each, with ``reconcile_s`` on the host clock
+   (label write to reconcile counted; the first from the agent's start)
+   and the tracer's spans. (b) Against
+   a ``FakeApiServer`` through a kubeconfig, in subprocesses: ``python -m
+   tpu_cc_manager_torch set-cc-mode -m on`` with ``DRAIN_STRATEGY=node``,
+   ``doctor --publish``, and the long-lived agent, which follows a label
+   change to ``off`` and exits 0 within ``SIGTERM_TIMEOUT_S`` of SIGTERM.
+   (c) ``FleetController.scan_once`` over (a)'s ``FakeKube``, each of
+   its K1 launches held bit-equal to K1's plain version on the same
+   block: the node reads converged, with fresh evidence, the agent's
+   passing doctor verdict and no problem. No platform identity or attestation provider
+   is asked (``TPU_CC_IDENTITY=none``, ``TPU_CC_ATTESTATION=none``);
+   ``/dev/nvidia*`` and the repository root stay as they were.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -75,11 +101,12 @@ versions of K2 and K3 within one chip call.
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
 are set to 0 just before phase 3 and read just after phase 5, set to 0
-again just before phase 7 and read just after it, and again just before
-phase 8's (b) and read just after its (d): each kernel must have been
-launched on its path, K2 exactly once per card per incremental tick and
-K3 once per ``entry()`` call and, in the dry run, once per card plus the
-cross-check. Lines before the last are findings (one JSON
+again just before phase 7 and read just after it, again just before
+phase 8's (b) and read just after its (d), and again just before phase 9
+and read just after it: each kernel must have been launched on its path
+(on phase 9's, K5 and K1 or K3), K2 exactly once per card per
+incremental tick and K3 once per ``entry()`` call and, in the dry run,
+once per card plus the cross-check. Lines before the last are findings (one JSON
 object each), the ``{"kernels": [...]}`` line and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``, whose
 ``count`` is 1 (the cards this run drives) and, under ``--multi-card``,
@@ -92,10 +119,12 @@ import contextlib
 import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -300,6 +329,7 @@ def check_k1(rate: float) -> List[dict]:
     now, stale = int(time.time()), 3600
     fleet_nb = bucket_nodes(FLEET_NODES)
     session_nb = bucket_nodes(SESSION_NODES)
+    agent_nb = bucket_nodes(len(AGENT_NODES))
     pool_pb = bucket_pools(N_POOLS)
     on = MODE_CODES["on"]
     # the contention cases: every row in slot 0; every row live and in
@@ -312,7 +342,8 @@ def check_k1(rate: float) -> List[dict]:
     cases = [
         # (name, block, pool targets, storage offset): the legacy fleet
         # tick at 100k (24 % padding rows on slot nb - 1, valid 0), the
-        # 8-pool policy scan, the 1M session geometry, a padded fleet with
+        # 8-pool policy scan, the 1M session geometry, phase 9's fleet
+        # scan over the agent's two nodes, a padded fleet with
         # every other slot empty, out-of-range codes and indices, the
         # contention cases, a row count that is not a multiple of 4, and
         # the 100k block at a 4-byte storage offset
@@ -324,6 +355,9 @@ def check_k1(rate: float) -> List[dict]:
          np.full(pool_pb, on, np.int32), 0),
         (f"nb{session_nb}_pb8",
          bench_columns(SESSION_NODES, session_nb, 1, 8, now, 3),
+         np.zeros(8, np.int32), 0),
+        (f"nb{agent_nb}_pb8",
+         bench_columns(len(AGENT_NODES), agent_nb, 1, 8, now, 11),
          np.zeros(8, np.int32), 0),
         ("padded_empty_slots",
          bench_columns(FLEET_NODES * 7 // 10, fleet_nb, 7, 8, now, 4,
@@ -1737,6 +1771,433 @@ def multi_card_phase() -> dict:
     return multi
 
 
+# ------------------------------------------------- phase 9: the node agent
+
+#: the agent's desired modes, in order, one reconcile each
+AGENT_MODES = ("on", "off", "devtools")
+#: GPU-consuming pods per node: one per GPU slot of an HGX H100 node
+AGENT_PODS = 8
+#: the tracer spans printed per reconcile: the whole reconcile, the flip
+#: taint, the drain, each card's flip and holder scan, the six engine
+#: phases of phase 7 and the evidence build
+AGENT_SPANS = ("reconcile", "taint_set", "evict", "reschedule",
+               "taint_clear", "flip", "holder_check") + FLIP_PHASES + (
+                   "evidence_build",)
+#: seconds the long-lived agent may take to exit after SIGTERM
+SIGTERM_TIMEOUT_S = 30
+#: seconds to wait for a publication the agent defers (evidence, doctor)
+PUBLISH_WAIT_S = 15
+AGENT_NODE, OTHER_NODE = "h100-node-0", "h100-node-1"
+#: phase 9's cluster
+AGENT_NODES = (AGENT_NODE, OTHER_NODE)
+
+
+#: phase 9 asks no platform identity or attestation provider: ``auto``
+#: would probe a cloud metadata server
+NO_PROVIDERS = {"TPU_CC_IDENTITY": "none", "TPU_CC_ATTESTATION": "none"}
+
+
+@contextlib.contextmanager
+def no_providers():
+    """``NO_PROVIDERS`` in this process's environment, restored after."""
+    keep = {k: os.environ.get(k) for k in NO_PROVIDERS}
+    os.environ.update(NO_PROVIDERS)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def gpu_pods(kube: Any, node: str, tag: str) -> None:
+    from tpu_cc_manager_torch.k8s.objects import make_pod
+
+    for i in range(AGENT_PODS):
+        kube.add_pod(make_pod(f"{tag}-{i}", "default",
+                              labels={"app": "gpu-job"}, node_name=node))
+
+
+def pods_on(kube: Any, node: str) -> List[str]:
+    return sorted(p["metadata"]["name"] for p in kube.list_pods(
+        "default", field_selector=f"spec.nodeName={node}"))
+
+
+def agent_nodes(kube: Any, desired: str) -> None:
+    """The node the agent manages and one it must not touch, each with
+    its 8 GPU pods."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.k8s.objects import make_node
+
+    for name, labels in ((AGENT_NODE, {L.CC_MODE_LABEL: desired}),
+                         (OTHER_NODE, {})):
+        labels[L.TPU_ACCELERATOR_LABEL] = "nvidia-h100-80gb"
+        kube.add_node(make_node(name, labels=labels))
+    gpu_pods(kube, OTHER_NODE, "keep")
+
+
+def wait_for(pred: Callable[[], bool], timeout_s: float, what: str) -> float:
+    """Poll ``pred`` until true; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while not pred():
+        require(time.perf_counter() - t0 < timeout_s,
+                f"{what} within {timeout_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def evidence_of(node: dict) -> Optional[dict]:
+    from tpu_cc_manager_torch import labels as L
+
+    raw = (node["metadata"].get("annotations") or {}).get(
+        L.EVIDENCE_ANNOTATION)
+    return json.loads(raw) if raw else None
+
+
+def doctor_of(node: dict) -> Optional[dict]:
+    from tpu_cc_manager_torch import labels as L
+
+    raw = (node["metadata"].get("annotations") or {}).get(
+        L.DOCTOR_ANNOTATION)
+    return json.loads(raw) if raw else None
+
+
+def evidence_attests(node: dict, paths: List[str], mode: str) -> bool:
+    doc = evidence_of(node)
+    return (doc is not None
+            and [d["path"] for d in doc["devices"]] == paths
+            and all(d["cc"] == mode for d in doc["devices"]))
+
+
+def in_process_agent(tmp: str) -> Tuple[List[dict], Any, List[str]]:
+    """Phase 9 (a): ``CCManagerAgent`` over ``FakeKube`` with a node
+    drain and ``CudaBackend`` on every card, driven on → off → devtools
+    from this thread; each reconcile checked and timed."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.agent import CCManagerAgent
+    from tpu_cc_manager_torch.config import AgentConfig
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+    from tpu_cc_manager_torch.trace import Tracer
+
+    backend = CudaBackend(state_dir=os.path.join(tmp, "agent-state"))
+    paths = [c.path for c in backend.find_tpus()[0]]
+    require(len(paths) == torch.cuda.device_count() >= 1,
+            f"CudaBackend enumerated {paths}")
+    kube = FakeKube()
+    agent_nodes(kube, AGENT_MODES[0])
+    keep = pods_on(kube, OTHER_NODE)
+    # what the drain and the flip taint wrote, in order
+    writes: List[Tuple[str, Any]] = []
+    patch, replace = kube.patch_node, kube.replace_node
+
+    def taints(node: dict) -> List[str]:
+        return [t.get("key") for t in (node.get("spec") or {}).get(
+            "taints") or []]
+
+    def patch_node(name: str, body: dict) -> dict:
+        out = patch(name, body)
+        if name == AGENT_NODE and "spec" in body:
+            writes.append(("spec", dict(body["spec"])))
+        return out
+
+    def replace_node(name: str, node: dict) -> dict:
+        out = replace(name, node)
+        if name == AGENT_NODE:
+            writes.append(("taints", taints(out)))
+        return out
+
+    kube.patch_node, kube.replace_node = patch_node, replace_node
+
+    spans: Dict[str, List[float]] = {}
+    tracer = Tracer()
+    tracer.add_sink(lambda s: spans.setdefault(s.name, []).append(s.dur_s))
+    cfg = AgentConfig(node_name=AGENT_NODE, default_mode="on",
+                      health_port=0, drain_strategy="node",
+                      readiness_file=os.path.join(tmp, "agent-ready"))
+    agent = CCManagerAgent(kube, cfg, backend=backend, tracer=tracer)
+    agent.watcher.watch_timeout_s = 1
+    agent.watcher.backoff_s = 0.05
+    rcs: List[int] = []
+    findings = []
+    gpu_pods(kube, AGENT_NODE, "job-0")
+    spans.clear()
+    gen, probes = backend.runtime_gen, LAUNCHES["probe_add_one"]
+    t0 = time.perf_counter()
+    thread = threading.Thread(
+        target=lambda: rcs.append(agent.run(max_reconciles=len(AGENT_MODES))),
+        name="smoke-agent")
+    thread.start()
+    try:
+        for step, mode in enumerate(AGENT_MODES):
+            if step:
+                gen, probes = backend.runtime_gen, LAUNCHES["probe_add_one"]
+                del writes[:]
+                spans.clear()
+                gpu_pods(kube, AGENT_NODE, f"job-{step}")
+                t0 = time.perf_counter()
+                kube.set_node_labels(AGENT_NODE, {L.CC_MODE_LABEL: mode})
+            wait_for(lambda: agent.reconcile_count > step, 60,
+                     f"reconcile {step + 1} ({mode})")
+            reconcile_s = time.perf_counter() - t0
+            node = kube.get_node(AGENT_NODE)
+            labels = node["metadata"]["labels"]
+            require(labels.get(L.CC_MODE_STATE_LABEL) == mode,
+                    f"state label {labels.get(L.CC_MODE_STATE_LABEL)!r} "
+                    f"after the {mode} reconcile")
+            want = {p: {"cc": mode, "ici": "off"} for p in paths}
+            require(agent.engine.get_modes() == want,
+                    f"get_modes after {mode}: {agent.engine.get_modes()}")
+            cordons = [w[1].get("unschedulable") for w in writes
+                       if w[0] == "spec" and "unschedulable" in w[1]]
+            require(cordons[:1] == [True] and cordons[-1:] == [False],
+                    f"cordon writes {cordons} during the {mode} flip")
+            require(not (node.get("spec") or {}).get("unschedulable"),
+                    f"the node stayed cordoned after {mode}")
+            tainted = [w[1] for w in writes if w[0] == "taints"]
+            require(any(L.FLIP_TAINT_KEY in t for t in tainted),
+                    f"no flip taint was set during {mode}: {tainted}")
+            require(L.FLIP_TAINT_KEY not in taints(node),
+                    f"the flip taint stayed after {mode}")
+            require(pods_on(kube, AGENT_NODE) == [],
+                    f"pods left on the node after {mode}: "
+                    f"{pods_on(kube, AGENT_NODE)}")
+            require(pods_on(kube, OTHER_NODE) == keep,
+                    f"the other node's pods changed during {mode}")
+            require(backend.runtime_gen == gen + 1,
+                    f"runtime_gen {gen} -> {backend.runtime_gen} on {mode}")
+            launched = LAUNCHES["probe_add_one"] - probes
+            require(launched >= len(paths),
+                    f"{launched} probe_add_one launches for {len(paths)} "
+                    f"card(s) on {mode}")
+            row = {"mode": mode, "reconcile_s": reconcile_s,
+                   "probe_launches": launched, "cards": len(paths),
+                   "pods_evicted": AGENT_PODS}
+            # host-clock span durations, summed over the cards; a span
+            # the reconcile did not open is left out
+            row["spans_s"] = {name: sum(spans[name]) for name in AGENT_SPANS
+                              if name in spans}
+            row["other_spans"] = sorted(set(spans) - set(AGENT_SPANS))
+            # the evidence rides the next write or idle tick after a flip
+            if step < len(AGENT_MODES) - 1:
+                row["evidence_wait_s"] = wait_for(
+                    lambda: evidence_attests(kube.get_node(AGENT_NODE),
+                                             paths, mode),
+                    PUBLISH_WAIT_S, f"evidence of {mode} naming {paths}")
+            if step == 0:
+                # the first idle tick's doctor self-check, published
+                row["doctor_wait_s"] = wait_for(
+                    lambda: doctor_of(kube.get_node(AGENT_NODE)) is not None,
+                    PUBLISH_WAIT_S, "the agent's doctor verdict")
+            finding(phase="agent_reconcile", **row)
+            findings.append(row)
+        thread.join(timeout=60)
+        require(not thread.is_alive() and rcs == [0],
+                f"the agent's run ended with {rcs}")
+    finally:
+        agent.shutdown()
+        thread.join(timeout=10)
+    # the final flush at shutdown carries the last flip's evidence
+    require(evidence_attests(kube.get_node(AGENT_NODE), paths,
+                             AGENT_MODES[-1]),
+            f"final evidence {evidence_of(kube.get_node(AGENT_NODE))}")
+    return findings, kube, paths
+
+
+def agent_cli(args: List[str], env: Dict[str, str],
+              timeout_s: float = 300) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "tpu_cc_manager_torch",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout_s)
+
+
+def agent_entry_points(tmp: str) -> dict:
+    """Phase 9 (b): ``set-cc-mode``, ``doctor --publish`` and the
+    long-lived agent, each in a subprocess against a ``FakeApiServer``
+    through a kubeconfig, on every card."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.k8s.apiserver import FakeApiServer
+
+    out: Dict[str, Any] = {}
+    srv = FakeApiServer(port=0).start()
+    proc = None
+    try:
+        store = srv.store
+        agent_nodes(store, "on")
+        gpu_pods(store, AGENT_NODE, "job")
+        keep = pods_on(store, OTHER_NODE)
+        kubeconfig = os.path.join(tmp, "agent-kubeconfig.yaml")
+        write_kubeconfig(kubeconfig, srv.port)
+        ready = os.path.join(tmp, "cli-agent-ready")
+        env = dict(os.environ, KUBECONFIG=kubeconfig, NODE_NAME=AGENT_NODE,
+                   TPU_CC_STATE_DIR=os.path.join(tmp, "cli-state"),
+                   DRAIN_STRATEGY="node", CC_READINESS_FILE=ready,
+                   HEALTH_PORT="0", **NO_PROVIDERS,
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        env.pop("TPU_CC_DEVICE_BACKEND", None)
+        env.pop("TPU_CC_TORCH_DEVICE", None)
+
+        t0 = time.perf_counter()
+        p = agent_cli(["set-cc-mode", "-m", "on"], env)
+        out["set_cc_mode_s"] = time.perf_counter() - t0
+        require(p.returncode == 0,
+                f"set-cc-mode exited {p.returncode}: {p.stderr[-2000:]}")
+        node = store.get_node(AGENT_NODE)
+        require(node["metadata"]["labels"].get(L.CC_MODE_STATE_LABEL) == "on",
+                f"set-cc-mode state label {node['metadata']['labels']}")
+        require(pods_on(store, AGENT_NODE) == [],
+                "set-cc-mode left pods on the node")
+        require(pods_on(store, OTHER_NODE) == keep,
+                "set-cc-mode touched the other node's pods")
+        doc = evidence_of(node)
+        require(doc is not None and all(d["cc"] == "on" and
+                                        d["path"].startswith("cuda:")
+                                        for d in doc["devices"]),
+                f"set-cc-mode evidence {doc}")
+
+        t0 = time.perf_counter()
+        p = agent_cli(["doctor", "--publish"], env)
+        out["doctor_s"] = time.perf_counter() - t0
+        require(p.returncode == 0,
+                f"doctor exited {p.returncode}: {p.stdout[-2000:]} "
+                f"{p.stderr[-2000:]}")
+        report = json.loads(p.stdout)
+        published = (store.get_node(AGENT_NODE)["metadata"].get(
+            "annotations") or {}).get(L.DOCTOR_ANNOTATION)
+        require(report["ok"] is True and published is not None
+                and json.loads(published)["ok"] is True,
+                f"doctor report {report}, published {published}")
+        out["doctor_checks"] = sorted({c["name"] for c in report["checks"]})
+
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_cc_manager_torch"], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        out["agent_ready_s"] = wait_for(
+            lambda: os.path.exists(ready) or proc.poll() is not None, 120,
+            "the agent's readiness file")
+        require(proc.poll() is None, "the agent exited before ready")
+        gpu_pods(store, AGENT_NODE, "job-agent")
+        t0 = time.perf_counter()
+        store.set_node_labels(AGENT_NODE, {L.CC_MODE_LABEL: "off"})
+        out["agent_flip_s"] = wait_for(
+            lambda: store.get_node(AGENT_NODE)["metadata"]["labels"].get(
+                L.CC_MODE_STATE_LABEL) == "off", 60,
+            "the agent's state label off")
+        require(pods_on(store, AGENT_NODE) == [],
+                "the agent left pods on the node")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SIGTERM_TIMEOUT_S)
+        out["sigterm_exit_s"] = time.perf_counter() - t0
+        log_tail = proc.stdout.read().decode()[-2000:]
+        require(rc == 0, f"the agent exited {rc} on SIGTERM: {log_tail}")
+        out["sigterm_timeout_s"] = SIGTERM_TIMEOUT_S
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        srv.stop()
+    return out
+
+
+def agent_path() -> Dict[str, int]:
+    """Phase 9 with its launch counts set to 0 just before it and read
+    just after it; K5 and the fleet cross-check's K1 or K3 must have
+    launched."""
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        reset_launches()
+        agent = agent_phase(tmp)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finding(phase="agent_path", launches=launches,
+            **{k: v for k, v in agent.items() if k != "reconciles"})
+    require(launches["probe_add_one"] > 0,
+            "the agent path never launched probe_add_one")
+    require(launches["fleet_tick"] + launches["fleet_plan"] > 0,
+            "the fleet controller's cross-check launched neither K1 nor K3")
+    return launches
+
+
+@contextlib.contextmanager
+def k1_held_to_plain():
+    """Hold every K1 launch the planner makes inside the block to K1's
+    plain version on the same inputs (bit-equal); yields the list of
+    ``{"shape", "max_abs_err"}`` rows, one per launch."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_reference
+
+    real, held = plan.fleet_tick_block, []
+
+    def checked(block, pool_target, now_s, stale_s, *, num_pools,
+                num_slots):
+        got = real(block, pool_target, now_s, stale_s, num_pools=num_pools,
+                   num_slots=num_slots)
+        want = fleet_tick_reference(block, pool_target, now_s, stale_s,
+                                    num_pools=num_pools, num_slots=num_slots)
+        err = max_abs_err(got, want)
+        shape = f"nb{block.shape[1]}_pb{num_pools}"
+        require(err == 0, f"fleet_tick {shape} in the fleet scan: "
+                          f"max |kernel - plain| = {err}")
+        held.append({"shape": shape, "max_abs_err": err})
+        return got
+
+    plan.fleet_tick_block = checked
+    try:
+        yield held
+    finally:
+        plan.fleet_tick_block = real
+
+
+def agent_phase(tmp: str) -> dict:
+    """Phase 9: the node agent on the card, (a) in process, (b) through
+    its entry points, (c) as the fleet controller reads what it wrote."""
+    from tpu_cc_manager_torch.device import base as device_base
+    from tpu_cc_manager_torch.fleet import FleetController
+
+    nodes_before = dev_nodes()
+    cwd_before = set(os.listdir(ROOT))
+    set_mesh(1)
+    with no_providers():
+        device_base.set_backend(None)
+        try:
+            reconciles, kube, paths = in_process_agent(tmp)
+            entry = agent_entry_points(tmp)
+            # (c) the operator's view of what the agent wrote
+            verdict = doctor_of(kube.get_node(AGENT_NODE))
+            require(verdict is not None and verdict["ok"] is True,
+                    f"the agent's doctor verdict {verdict}")
+            with k1_held_to_plain() as held:
+                t0 = time.perf_counter()
+                fleet = FleetController(kube, port=0).scan_once()
+                scan_s = time.perf_counter() - t0
+        finally:
+            device_base.set_backend(None)
+    require(held, "the fleet scan launched no K1 to hold to its plain "
+                  "version")
+    require(AGENT_NODE not in fleet["needs_flip"]
+            and AGENT_NODE not in fleet["failed"],
+            f"the fleet reads {AGENT_NODE} as divergent: {fleet['needs_flip']}")
+    require(fleet["problems"] == [], f"fleet problems {fleet['problems']}")
+    require(AGENT_NODE not in fleet.get("stale_evidence", []),
+            "the agent's evidence reads stale")
+    require(AGENT_NODE not in [d["node"] for d in fleet["doctor"]["failing"]]
+            and AGENT_NODE not in fleet["doctor"].get("unreported", []),
+            f"doctor buckets {fleet['doctor']}")
+    require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
+    require(set(os.listdir(ROOT)) == cwd_before,
+            "the agent wrote into the repository root")
+    return {"cards": len(paths), "paths": paths, "reconciles": reconciles,
+            "entry_points": entry, "fleet_scan_s": scan_s,
+            "fleet_converged": True, "fleet_scan_k1": held}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1859,6 +2320,8 @@ def run() -> None:
     launches["fleet_tick_partial"] = mesh_launches["fleet_tick_partial"]
     launches["mesh_combine"] = mesh_launches["mesh_combine"]
 
+    agent_launches = agent_path()
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         # the largest shape the main path gives each kernel
@@ -1867,6 +2330,7 @@ def run() -> None:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "agent_path_launches": agent_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
             "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
             "shape": main["shape"], "ms": main["ms"],
@@ -1926,8 +2390,8 @@ MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
 
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
-        print("usage: python3 chip_smoke.py [--k1 | --k2k3 | --multi-card]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py "
+              "[--k1 | --k2k3 | --multi-card]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

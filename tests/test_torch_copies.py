@@ -24,7 +24,8 @@ COPIES = (
     "identity.py", "engine.py", "config.py", "modes.py",
     "k8s/objects.py", "k8s/fake.py", "k8s/apiserver.py", "k8s/__init__.py",
     "obs.py", "tsring.py", "watch.py", "watchdog.py", "profiler.py",
-    "evidence.py", "leader.py", "fleet.py",
+    "evidence.py", "leader.py", "fleet.py", "labels.py", "k8s/batch.py",
+    "drain.py", "slice_coord.py", "doctor.py", "agent.py", "webhook.py",
 )
 
 #: module -> [(name, reference block, port block)]

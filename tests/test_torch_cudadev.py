@@ -325,9 +325,8 @@ def test_get_cc_mode_cli(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    [], ["set-cc-mode", "-m", "on"], ["rollout", "-m", "on"],
+    ["rollout", "-m", "on"],
     ["policy-controller", "--interval", "5"], ["policy-controller"],
-    ["doctor"], ["webhook"],
     ["simlab", "validate", "x.json"],
 ])
 def test_other_subcommands_exit_2_naming_their_roadmap_item(argv, capsys):

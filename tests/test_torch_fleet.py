@@ -10,7 +10,6 @@ mesh and on an 8-shard one (``TPU_CC_PLANNER_MESH``, which the reference
 reads too).
 """
 
-import copy
 import json
 import threading
 import time
@@ -26,11 +25,13 @@ import jax  # noqa: E402
 
 import tpu_cc_manager.__main__ as jcli  # noqa: E402
 import tpu_cc_manager_torch.__main__ as tcli  # noqa: E402
+from tpu_cc_manager import doctor as jdoctor  # noqa: E402
 from tpu_cc_manager import fleet as jfleet  # noqa: E402
 from tpu_cc_manager import labels as JL  # noqa: E402
 from tpu_cc_manager.k8s import client as jclient  # noqa: E402
 from tpu_cc_manager.k8s import fake as jfake  # noqa: E402
 from tpu_cc_manager.k8s import objects as jobjects  # noqa: E402
+from tpu_cc_manager_torch import doctor as tdoctor  # noqa: E402
 from tpu_cc_manager_torch import fleet as tfleet  # noqa: E402
 from tpu_cc_manager_torch import labels as L  # noqa: E402
 from tpu_cc_manager_torch import plan as tplan  # noqa: E402
@@ -42,10 +43,10 @@ VERSIONS = f"jax {jax.__version__}, torch {torch.__version__}"
 
 REF = types.SimpleNamespace(name="reference", fleet=jfleet, fake=jfake,
                             objects=jobjects, client=jclient, cli=jcli,
-                            labels=JL)
+                            labels=JL, doctor=jdoctor)
 PORT = types.SimpleNamespace(name="port", fleet=tfleet, fake=tfake,
                              objects=tobjects, client=tclient, cli=tcli,
-                             labels=L)
+                             labels=L, doctor=tdoctor)
 SIDES = (REF, PORT)
 
 
@@ -263,28 +264,29 @@ def test_doctor_aggregation_and_policy_summaries():
 
 def test_doctor_publish_round_trip(tmp_path, monkeypatch):
     """doctor --publish -> fleet aggregation through the annotation
-    channel. The doctor is not ported yet: the reference's publishes onto
-    the reference's FakeKube, and the port's FakeKube gets the same node
-    object."""
+    channel, each package's own doctor publishing onto its own FakeKube:
+    the reference's over its sysfs backend, the port's over
+    ``CudaBackend`` on the CPU (the sysfs backend is not ported)."""
     from test_doctor import _backend, _flip
 
-    from tpu_cc_manager.doctor import publish_report, run_doctor
-
-    backend = _backend(tmp_path, monkeypatch)
-    _flip(backend, "on")
-    jkube = jfake.FakeKube()
-    jkube.add_node(_node(REF, "pub-node", desired="on", state="off"))
-    report = run_doctor(kube=jkube, node_name="pub-node", backend=backend)
-    assert report["ok"] is False
-    assert publish_report(jkube, "pub-node", report)
-    published = copy.deepcopy(jkube.get_node("pub-node"))
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.engine import ModeEngine
 
     def case(side):
         if side is REF:
-            kube = jkube
+            backend = _backend(tmp_path, monkeypatch)
+            _flip(backend, "on")
         else:
-            kube = tfake.FakeKube()
-            kube.add_node(copy.deepcopy(published))
+            backend = CudaBackend(state_dir=str(tmp_path / "port-state"),
+                                  device="cpu")
+            ModeEngine(set_state_label=lambda v: None, backend=backend,
+                       evict_components=False).set_mode("on")
+        kube = side.fake.FakeKube()
+        kube.add_node(_node(side, "pub-node", desired="on", state="off"))
+        report = side.doctor.run_doctor(kube=kube, node_name="pub-node",
+                                        backend=backend)
+        assert report["ok"] is False
+        assert side.doctor.publish_report(kube, "pub-node", report)
         fleet = side.fleet.FleetController(kube, port=0).scan_once()
         assert [d["node"] for d in fleet["doctor"]["failing"]] == [
             "pub-node"]

@@ -93,7 +93,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
                 "device.holders", "device.fake", "k8s.client", "k8s.aio",
                 "k8s.aio_bridge", "k8s.objects", "k8s.fake",
                 "k8s.apiserver", "obs", "tsring", "watchdog", "profiler",
-                "evidence", "leader", "fleet", "kernels.mesh_combine"):
+                "evidence", "leader", "fleet", "kernels.mesh_combine",
+                "k8s.batch", "drain", "slice_coord", "doctor", "agent",
+                "webhook"):
         assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
 
 

@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_kernels import (  # noqa: E402
-    NOW, STALE, _assert_same, _columns, _jax_tick, _port_tick)
+    NOW, STALE, VERSIONS, _assert_same, _columns, _jax_tick, _port_tick)
 from tpu_cc_manager import plan as jplan  # noqa: E402
 from tpu_cc_manager_torch import plan as tplan  # noqa: E402
 from tpu_cc_manager_torch.kernels import LAUNCHES  # noqa: E402
@@ -69,11 +69,12 @@ def test_fleet_tick_plain_version_matches_jax_where_rows_share_a_key(
     _assert_same(_port_tick(cols, target, pb, nb), want)
     if case == "one_slot":
         # one slot holds every row; every other slot keeps its identities
-        assert not want["slice_coherent"][1:].any()
+        assert not want["slice_coherent"][1:].any(), VERSIONS
     if case == "snapshot_padding":
         # the padding slot folds every padding row in and reads coherent
-        assert want["slice_coherent"][nb - 1]
-        assert not np.asarray(want["needs_flip"])[nb * 3 // 4:].any()
+        assert want["slice_coherent"][nb - 1], VERSIONS
+        assert not np.asarray(want["needs_flip"])[nb * 3 // 4:].any(), (
+            VERSIONS)
 
 
 def _combined_partials(cols, target, pb, nb, shards):
@@ -101,7 +102,8 @@ def test_partial_form_combines_to_jax_where_rows_share_a_key(case, shards):
     target = _targets(pb, seed=shards + 1)
     before = dict(LAUNCHES)
     got = _combined_partials(cols, target, pb, nb, shards)
-    assert LAUNCHES == before  # the plain versions count nothing
+    # the plain versions count nothing
+    assert LAUNCHES == before, VERSIONS
     _assert_same(got, _jax_tick(cols, target, pb, nb))
 
 
@@ -127,7 +129,8 @@ def test_wrapper_takes_a_block_at_a_storage_offset():
     storage = torch.empty(block.numel() + 1, dtype=torch.int32)
     shifted = storage[1:].view(block.shape)
     shifted.copy_(block)
-    assert shifted.is_contiguous() and shifted.storage_offset() == 1
+    assert shifted.is_contiguous() and shifted.storage_offset() == 1, (
+        VERSIONS)
     got = KF.fleet_tick_block(shifted, torch.from_numpy(target), NOW,
                               STALE, num_pools=pb, num_slots=nb)
     _assert_same(got, _jax_tick(cols, target, pb, nb))

@@ -1,0 +1,410 @@
+"""Re-run a reference test module against the port, case by case.
+
+``port_twin("test_agent")`` loads ``tests/test_agent.py`` a second time,
+with its import statements rewritten from ``tpu_cc_manager`` to
+``tpu_cc_manager_torch`` (the rewrite ``tests/test_torch_copies.py``
+holds the copies to) and any named edits applied. ``both(...)`` then runs
+one case on the reference module and on its twin: each side over its own
+package's ``FakeKube``, fake backend and registries, so every assertion
+of the reference case holds on both. What the case leaves behind is
+recorded on each side and must be equal:
+
+- for every ``FakeKube`` the case built: each node's labels, annotations
+  (JSON ones parsed), taints and ``spec.unschedulable``, the pods still
+  bound, and the core/v1 Events posted;
+- for each node and each label or annotation key, the values the write
+  batcher (``NodePatchBatcher``) published, in order (how it grouped
+  keys into writes depends on when its flush window closed);
+- every admission response (``mutate_pod``, ``validate_pod``,
+  ``review_response``);
+- every doctor report (``run_doctor``), ordered by node (agents on
+  several nodes run their doctors as their threads run).
+
+Before the snapshot, every agent the case built (``CCManagerAgent``)
+delivers what it has queued (``flush_events``): its Events are posted by
+a worker thread that may still hold them when the case's last assertion
+passes.
+
+Masked before the comparison, and nothing else: timestamps (ISO-8601
+strings, the ``firstTimestamp``/``lastTimestamp``/``timestamp``/``at``
+fields, the slice heartbeat's clock reading, and the ``in 0.12s``
+durations an Event message carries), uuids and the random suffixes of
+one-shot Event names, trace ids (W3C ``traceparent`` values), and the
+evidence digests computed over a document that holds a timestamp (each
+side's digest is checked against its own document by the case's own
+evidence assertions).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import importlib
+import inspect
+import itertools
+import json
+import pathlib
+import re
+import sys
+import types
+
+import pytest
+
+from test_torch_copies import rewrite_imports
+
+TESTS = pathlib.Path(__file__).resolve().parent
+
+_ISO = re.compile(
+    r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(?:\.\d+)?(?:Z|[+-]\d{2}:?\d{2})?")
+_UUID = re.compile(
+    r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+_TRACEPARENT = re.compile(r"\b00-[0-9a-f]{32}-[0-9a-f]{16}-[0-9a-f]{2}\b")
+_DURATION = re.compile(r"\bin \d+\.\d+s\b")
+_ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile)\.)[0-9a-f]+")
+_TS_KEYS = frozenset({"firstTimestamp", "lastTimestamp", "timestamp", "at",
+                      "eventTime", "creationTimestamp"})
+_DIGEST_KEYS = frozenset({"digest"})
+
+
+def _mask_str(s: str) -> str:
+    s = _ISO.sub("<ts>", s)
+    s = _UUID.sub("<uuid>", s)
+    s = _TRACEPARENT.sub("<traceparent>", s)
+    s = _DURATION.sub("in <dur>s", s)
+    return _ONESHOT.sub(r"\1<id>", s)
+
+
+def mask(value, key=None):
+    """``value`` with its timestamps, uuids and trace ids masked."""
+    if key in _TS_KEYS and value is not None:
+        return "<ts>"
+    if isinstance(value, dict):
+        holds_time = any(k in _TS_KEYS for k in value)
+        return {k: ("<digest>" if holds_time and k in _DIGEST_KEYS
+                    else mask(v, k)) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [mask(v) for v in value]
+    if isinstance(value, str):
+        return _mask_str(value)
+    return value
+
+
+class Side(types.SimpleNamespace):
+    """One package under test: ``pkg`` is ``tpu_cc_manager`` or
+    ``tpu_cc_manager_torch``."""
+
+    def module(self, name: str):
+        return importlib.import_module(f"{self.pkg}.{name}")
+
+    def reset(self) -> None:
+        """The process-wide state a case may leave behind: the device
+        registry and the identity caches (conftest resets only the
+        reference's, between tests)."""
+        self.module("device.base").set_backend(None)
+        identity = self.module("identity")
+        identity._auto_cache = None
+        identity._explicit_cache.clear()
+
+
+REF = Side(name="reference", pkg="tpu_cc_manager")
+PORT = Side(name="port", pkg="tpu_cc_manager_torch")
+
+
+def port_twin(name: str, edits=()):
+    """The reference test module ``name`` as the port runs it. ``edits``
+    are ``(why, old, new)`` text replacements, each matching once."""
+    path = TESTS / f"{name}.py"
+    src = rewrite_imports(path.read_text())
+    for why, old, new in edits:
+        assert src.count(old) == 1, f"{name}: edit {why!r} no longer matches"
+        src = src.replace(old, new)
+    mod = types.ModuleType(f"{name}__port")
+    mod.__file__ = str(path)
+    sys.modules[mod.__name__] = mod
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def cases(mod):
+    """``pytest.param(test_name, params)`` for every case of ``mod``,
+    parametrized tests expanded as pytest expands them."""
+    out = []
+    for name, fn in vars(mod).items():
+        if not name.startswith("test_") or not inspect.isfunction(fn):
+            continue
+        marks = [m for m in getattr(fn, "pytestmark", [])
+                 if m.name == "parametrize"]
+        if not marks:
+            out.append(pytest.param(name, {}, id=name))
+            continue
+        axes = []
+        for m in marks:
+            argnames = m.args[0]
+            if isinstance(argnames, str):
+                argnames = [a.strip() for a in argnames.split(",")]
+            rows = []
+            for i, vals in enumerate(m.args[1]):
+                if len(argnames) == 1:
+                    vals = (vals,)
+                rows.append((f"{argnames[0]}{i}", dict(zip(argnames, vals))))
+            axes.append(rows)
+        for combo in itertools.product(*axes):
+            params = {}
+            for _, p in combo:
+                params.update(p)
+            cid = "-".join(i for i, _ in combo)
+            out.append(pytest.param(name, params, id=f"{name}[{cid}]"))
+    return out
+
+
+class _Recorder:
+    def __init__(self):
+        self.kubes = []
+        self.batcher_writes = []
+        self.admission = []
+        self.doctor_reports = []
+        self.agents = []
+
+    def snapshot(self, tmp: str):
+        for agent in self.agents:
+            assert agent.flush_events(), "an agent's Events never drained"
+        reports = sorted(self.doctor_reports, key=lambda r: json.dumps(
+            r["out"].get("node") if isinstance(r["out"], dict) else None))
+        return _untmp({
+            "kubes": [_kube_view(k) for k in self.kubes],
+            "batcher_writes": _publish_history(self.batcher_writes),
+            "admission": mask(self.admission),
+            "doctor_reports": mask(reports),
+        }, tmp)
+
+
+def _untmp(value, tmp: str):
+    """``value`` with the side's own scratch directory named ``<tmp>``."""
+    if isinstance(value, dict):
+        return {k: _untmp(v, tmp) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_untmp(v, tmp) for v in value]
+    if isinstance(value, str):
+        return value.replace(tmp, "<tmp>")
+    return value
+
+
+def _publish_history(writes):
+    """node -> key -> the values the batcher published for that key, in
+    order, repeats collapsed. How the batcher groups keys into one write
+    depends on when its flush window closes, and agents on several nodes
+    interleave as threads run; what each key went through does not."""
+    out = {}
+    for w in writes:
+        node = out.setdefault(w["node"], {})
+        for kind in ("labels", "annotations"):
+            for k, v in w[kind].items():
+                v = _annotation_view(v) if kind == "annotations" else mask(v)
+                hist = node.setdefault(f"{kind}:{k}", [])
+                if not hist or hist[-1] != v:
+                    hist.append(v)
+    return out
+
+
+def _annotation_view(value):
+    try:
+        parsed = json.loads(value)
+    except (TypeError, ValueError):
+        return mask(value)
+    return mask(parsed) if isinstance(parsed, (dict, list)) else mask(value)
+
+
+def _kube_view(kube):
+    from tpu_cc_manager import labels as L
+
+    with kube._lock:
+        nodes = copy.deepcopy(kube._nodes)
+        pods = sorted(kube._pods)
+        events = copy.deepcopy(kube.cluster_events)
+    view = {}
+    for name in sorted(nodes):
+        meta = nodes[name]["metadata"]
+        spec = nodes[name].get("spec") or {}
+        ann = {}
+        for k, v in sorted((meta.get("annotations") or {}).items()):
+            ann[k] = ("<ts>" if k == L.SLICE_HB_ANNOTATION
+                      else _annotation_view(v))
+        view[name] = {
+            "labels": mask(dict(sorted((meta.get("labels") or {}).items()))),
+            "annotations": ann,
+            "taints": mask(spec.get("taints") or []),
+            "unschedulable": bool(spec.get("unschedulable")),
+        }
+    for e in events:
+        e["metadata"].pop("resourceVersion", None)
+    # agents on several nodes post as their threads run: order by node
+    events.sort(key=lambda e: e.get("involvedObject", {}).get("name", ""))
+    return {"nodes": view, "pods": [list(p) for p in pods],
+            "events": mask(events)}
+
+
+def settled(snapshot):
+    """What a case whose threads race its own end leaves for certain:
+    each node's labels, taints and ``spec.unschedulable``. The doctor's
+    ok label is left out: it rides the idle tick's self-check, which
+    lands or not before the case stops its agents."""
+    from tpu_cc_manager import labels as L
+
+    return [{name: {"labels": {k: v for k, v in n["labels"].items()
+                               if k != L.DOCTOR_OK_LABEL},
+                    "taints": n["taints"],
+                    "unschedulable": n["unschedulable"]}
+             for name, n in kube["nodes"].items()}
+            for kube in snapshot["kubes"]]
+
+
+def without_doctor(snapshot):
+    """The snapshot without the idle tick's doctor self-check: its
+    verdict label and annotation, on the nodes and in the batcher's
+    history, and its reports. Each agent runs it on a timer that fires
+    or not before the case stops its agents."""
+    from tpu_cc_manager import labels as L
+
+    out = copy.deepcopy(snapshot)
+    for kube in out["kubes"]:
+        for node in kube["nodes"].values():
+            node["labels"].pop(L.DOCTOR_OK_LABEL, None)
+            node["annotations"].pop(L.DOCTOR_ANNOTATION, None)
+    for hist in out["batcher_writes"].values():
+        hist.pop(f"labels:{L.DOCTOR_OK_LABEL}", None)
+        hist.pop(f"annotations:{L.DOCTOR_ANNOTATION}", None)
+    out["doctor_reports"] = []
+    return out
+
+
+@contextlib.contextmanager
+def recording(side: Side, mp: pytest.MonkeyPatch, testmod):
+    """Record, on ``side``, what the case leaves behind (see the module
+    docstring)."""
+    rec = _Recorder()
+    fake = side.module("k8s.fake")
+    batch = side.module("k8s.batch")
+    webhook = side.module("webhook")
+
+    init = fake.FakeKube.__init__
+
+    def kube_init(self, *a, **kw):
+        init(self, *a, **kw)
+        rec.kubes.append(self)
+
+    mp.setattr(fake.FakeKube, "__init__", kube_init)
+
+    write = batch.NodePatchBatcher._write_split
+
+    def batch_write(self, labels, ann):
+        rec.batcher_writes.append({"node": self.node_name,
+                                   "labels": copy.deepcopy(labels),
+                                   "annotations": copy.deepcopy(ann)})
+        return write(self, labels, ann)
+
+    mp.setattr(batch.NodePatchBatcher, "_write_split", batch_write)
+
+    agent_cls = side.module("agent").CCManagerAgent
+    agent_init = agent_cls.__init__
+
+    def record_agent(self, *a, **kw):
+        agent_init(self, *a, **kw)
+        rec.agents.append(self)
+
+    mp.setattr(agent_cls, "__init__", record_agent)
+
+    doctor = side.module("doctor")
+    for module, fname, into in (
+            (webhook, "mutate_pod", rec.admission),
+            (webhook, "validate_pod", rec.admission),
+            (webhook, "review_response", rec.admission),
+            (doctor, "run_doctor", rec.doctor_reports)):
+        real = getattr(module, fname)
+
+        def wrapped(*a, _real=real, _name=fname, _into=into, **kw):
+            out = _real(*a, **kw)
+            _into.append({"fn": _name, "out": copy.deepcopy(out)})
+            return out
+
+        mp.setattr(module, fname, wrapped)
+        if testmod.__dict__.get(fname) is real:
+            mp.setattr(testmod, fname, wrapped)
+    yield rec
+
+
+def run_case(side: Side, testmod, name: str, params: dict, request,
+             tmp_path: pathlib.Path):
+    """Run ``testmod.<name>`` on ``side`` with the fixtures it asks for;
+    return what it left behind."""
+    fn = getattr(testmod, name)
+    side_tmp = tmp_path / side.name
+    side_tmp.mkdir()
+    side.reset()
+    try:
+        with pytest.MonkeyPatch.context() as mp, \
+                recording(side, mp, testmod) as rec:
+            kwargs = {}
+            for arg in inspect.signature(fn).parameters:
+                if arg in params:
+                    kwargs[arg] = params[arg]
+                elif arg == "tmp_path":
+                    kwargs[arg] = side_tmp
+                elif arg == "monkeypatch":
+                    kwargs[arg] = mp
+                elif hasattr(getattr(testmod, arg, None),
+                             "_get_wrapped_function"):
+                    # a fixture of the test module itself: each side
+                    # builds its own
+                    kwargs[arg] = getattr(
+                        testmod, arg)._get_wrapped_function()()
+                else:
+                    kwargs[arg] = request.getfixturevalue(arg)
+            fn(**kwargs)
+            return rec.snapshot(str(side_tmp))
+    finally:
+        side.reset()
+
+
+def _first_difference(want, got, path="$"):
+    if type(want) is not type(got):
+        return f"{path}: {want!r} != {got!r}"
+    if isinstance(want, dict):
+        for k in sorted(set(want) | set(got), key=str):
+            if k not in want or k not in got:
+                return f"{path}.{k}: only on the " + (
+                    "port" if k in got else "reference")
+            d = _first_difference(want[k], got[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(want, list):
+        for i, (w, g) in enumerate(zip(want, got)):
+            d = _first_difference(w, g, f"{path}[{i}]")
+            if d:
+                return d
+        if len(want) != len(got):
+            return f"{path}: {len(want)} items on the reference, " \
+                   f"{len(got)} on the port"
+        return None
+    return None if want == got else f"{path}: {want!r} != {got!r}"
+
+
+def both(testmods, name: str, params: dict, request, tmp_path, versions,
+         racy=None, view=None):
+    """Run case ``name`` on the reference module and on its port twin;
+    what the two leave behind must be equal, as ``view(name, side,
+    snapshot)`` shows it when a view is given. ``racy`` maps a case whose
+    threads race its own end to ``(part, why)``: only ``part(snapshot)``
+    is compared there (``settled`` or ``without_doctor``). Returns the
+    port's."""
+    ref_mod, port_mod = testmods
+    want = run_case(REF, ref_mod, name, params, request, tmp_path)
+    got = run_case(PORT, port_mod, name, params, request, tmp_path)
+    if view is not None:
+        want, got = view(name, REF, want), view(name, PORT, got)
+    if racy and name in racy:
+        part = racy[name][0]
+        want, got = part(want), part(got)
+    assert got == want, (f"port and reference differ ({versions}): "
+                         f"{_first_difference(want, got)}")
+    return got

@@ -3,17 +3,31 @@
 The subcommands the port has, as the reference's
 ``tpu_cc_manager/__main__.py`` runs them:
 
+- no subcommand: the long-lived node agent (see
+  tpu_cc_manager_torch.agent): watches the node's ``cc.mode`` label,
+  drains, flips every card through the device layer (``cuda`` by
+  default, K5 probing each card after its reset) and publishes the
+  state label, evidence and the doctor's verdict;
+- ``set-cc-mode -m <mode>``: one-shot engine invocation, with the
+  slice-coherent quorum path when ``SLICE_COORDINATION`` is set, the
+  evidence publication, and the failed state label on every error path;
+- ``get-cc-mode``: print per-device modes as JSON;
 - ``probe-devices``: print the device inventory as JSON; ``--backend
   cuda`` (default) asks the live CUDA runtime, ``--backend fake`` the
   in-memory fake;
-- ``get-cc-mode``: print per-device modes as JSON;
 - ``fleet-controller``: the long-running read-only fleet audit service
   (planner scans on the GPU served as /metrics + /report — see
   tpu_cc_manager_torch.fleet); ``--once`` runs one scan, prints the
-  report and exits non-zero when the audit found problems.
+  report and exits non-zero when the audit found problems;
+- ``doctor``: node-local trust-surface diagnostic — statefile, gate,
+  holders, labels, evidence cross-checked in one JSON report (see
+  tpu_cc_manager_torch.doctor);
+- ``webhook``: admission webhook steering requires-cc pods onto
+  verified nodes and rejecting contradictory specs (see
+  tpu_cc_manager_torch.webhook).
 
-Every other subcommand, and the long-lived agent (no subcommand), exits 2
-and names the ROADMAP item that ports it.
+``rollout``, ``policy-controller`` and ``simlab`` exit 2 and name the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -23,9 +37,11 @@ import logging
 import os
 import sys
 
+from tpu_cc_manager_torch.agent import CCManagerAgent
 from tpu_cc_manager_torch.config import build_parser, parse_config
 from tpu_cc_manager_torch.device.base import DeviceError
-from tpu_cc_manager_torch.engine import ModeEngine, NullDrainer
+from tpu_cc_manager_torch.drain import build_drainer, set_cc_mode_state_label
+from tpu_cc_manager_torch.engine import FatalModeError, ModeEngine, NullDrainer
 from tpu_cc_manager_torch.k8s.client import (
     ApiException, HttpKubeClient, KubeConfig,
 )
@@ -33,14 +49,10 @@ from tpu_cc_manager_torch.obs import setup_logging
 
 log = logging.getLogger("tpu-cc-manager")
 
-#: subcommand (None = the agent) -> the ROADMAP item that ports it
+#: subcommand -> the ROADMAP item that ports it
 NOT_PORTED = {
-    None: "ROADMAP Queue 1 item 3 (slice 3: the node agent)",
-    "set-cc-mode": "ROADMAP Queue 1 item 3 (slice 3: set-cc-mode)",
-    "doctor": "ROADMAP Queue 1 item 3 (slice 3: doctor)",
     "rollout": "ROADMAP Queue 1 item 4 (the controllers)",
     "policy-controller": "ROADMAP Queue 1 item 4 (the controllers)",
-    "webhook": "ROADMAP Queue 1 item 5 (entry points and simlab)",
     "simlab": "ROADMAP Queue 1 item 5 (entry points and simlab)",
 }
 
@@ -150,7 +162,7 @@ def main(argv=None) -> int:
     command = build_parser().parse_args(argv).command
     if command in NOT_PORTED:
         print(f"tpu-cc-manager (PyTorch port): "
-              f"{command or 'the agent'} is not ported yet; "
+              f"{command} is not ported yet; "
               f"{NOT_PORTED[command]}", file=sys.stderr)
         return 2
     cfg, args = parse_config(argv)
@@ -188,16 +200,155 @@ def main(argv=None) -> int:
         print(json.dumps(out, indent=2, sort_keys=True))
         return 0
 
-    # get-cc-mode
-    engine = ModeEngine(set_state_label=lambda v: None, drainer=NullDrainer(),
-                        evict_components=False)
+    if args.command == "get-cc-mode":
+        engine = ModeEngine(set_state_label=lambda v: None,
+                            drainer=NullDrainer(), evict_components=False)
+        try:
+            modes = engine.get_modes()
+        except DeviceError as e:
+            print(f"tpu-cc-manager: get-cc-mode failed: {e}",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps(modes, indent=2, sort_keys=True))
+        return 0
+
+    if args.command == "doctor":
+        from tpu_cc_manager_torch.doctor import main_from_args
+
+        return main_from_args(cfg, args)
+
+    if args.command == "webhook":
+        from tpu_cc_manager_torch.webhook import AdmissionServer
+
+        try:
+            server = AdmissionServer(
+                args.port, cert_file=args.cert, key_file=args.key,
+            )
+        except (ValueError, OSError) as e:
+            log.error("webhook refused: %s", e)
+            return 1
+        _stop_on_sigterm(server.stop)
+        return server.serve_forever()
+
+    if args.command == "set-cc-mode":
+        return _set_cc_mode(cfg, args)
+
+    # long-lived agent
+    kube = _kube_client(cfg)
+    slice_coordinator = None
+    if cfg.slice_coordination:
+        from tpu_cc_manager_torch.slice_coord import SliceCoordinator
+
+        slice_coordinator = SliceCoordinator(
+            kube, cfg.node_name,
+            commit_timeout_s=cfg.slice_commit_timeout_s,
+        )
+    agent = CCManagerAgent(kube, cfg, slice_coordinator=slice_coordinator)
+    _stop_on_sigterm(agent.shutdown)
+    # the black box survives the kill: the SIGTERM dump runs first,
+    # then chains into the clean-shutdown handler installed above
+    from tpu_cc_manager_torch.flightrec import install_sigterm_dump
+
+    install_sigterm_dump(agent.flightrec)
+    return agent.run()
+
+
+def _publish_failed(kube, node_name: str) -> None:
+    """Best-effort ``cc.mode.state=failed``: the state label is the
+    cluster's only machine-readable outcome for a one-shot run, and the
+    label write itself may be what failed."""
+    from tpu_cc_manager_torch.modes import STATE_FAILED
+
     try:
-        modes = engine.get_modes()
-    except DeviceError as e:
-        print(f"tpu-cc-manager: get-cc-mode failed: {e}", file=sys.stderr)
+        set_cc_mode_state_label(kube, node_name, STATE_FAILED)
+    except Exception as pub_err:
+        log.error("could not publish cc.mode.state=failed: %s", pub_err)
+
+
+def _set_cc_mode(cfg, args) -> int:
+    """``set-cc-mode -m <mode>``, as the reference runs it: one engine
+    invocation (through the slice quorum when ``SLICE_COORDINATION`` is
+    set), evidence on success, a reconcile Event either way, and the
+    failed state label on every error path."""
+    import time
+    import uuid
+
+    from tpu_cc_manager_torch.drain import (
+        NodeFlipTaint, build_reconcile_event, post_event_best_effort,
+    )
+    from tpu_cc_manager_torch.modes import InvalidModeError
+    from tpu_cc_manager_torch.slice_coord import (
+        SliceAbortError, SliceCoordinator,
+    )
+
+    kube = _kube_client(cfg)
+    engine = ModeEngine(
+        set_state_label=lambda v: set_cc_mode_state_label(
+            kube, cfg.node_name, v
+        ),
+        drainer=build_drainer(kube, cfg),
+        evict_components=cfg.evict_components and cfg.drain_strategy != "none",
+        flip_taint=NodeFlipTaint(kube, cfg.node_name),
+    )
+
+    def _post_event(outcome: str, dur: float) -> None:
+        if not cfg.emit_events:
+            return
+        event = build_reconcile_event(
+            cfg.node_name, args.mode, outcome, dur,
+            name=f"{cfg.node_name}.cc-oneshot.{uuid.uuid4().hex[:8]}",
+        )
+        if event is not None:
+            post_event_best_effort(kube, event)
+
+    coordinator = None
+    if cfg.slice_coordination:
+        coordinator = SliceCoordinator(
+            kube, cfg.node_name,
+            commit_timeout_s=cfg.slice_commit_timeout_s,
+        )
+
+    t0 = time.monotonic()
+    try:
+        if coordinator is not None:
+            try:
+                coordinator.start()  # heartbeat, like the agent
+                ok = coordinator.apply_slice_coherent(args.mode, engine)
+            finally:
+                coordinator.stop()
+        else:
+            ok = engine.set_mode(args.mode)
+        if ok and cfg.emit_evidence:
+            # the same per-flip evidence the long-lived agent publishes
+            from tpu_cc_manager_torch.evidence import publish_evidence
+
+            publish_evidence(kube, cfg.node_name)
+        _post_event("success" if ok else "failure", time.monotonic() - t0)
+        return 0 if ok else 1
+    except InvalidModeError as e:
+        # a typo'd mode is a clean rejection (CCModeInvalid), not a
+        # flip failure
+        log.error("rejecting desired mode: %s", e)
+        _publish_failed(kube, cfg.node_name)
+        _post_event("invalid", time.monotonic() - t0)
         return 1
-    print(json.dumps(modes, indent=2, sort_keys=True))
-    return 0
+    except SliceAbortError as e:
+        # the slice never agreed; local devices untouched
+        log.error("slice coordination aborted: %s", e)
+        _publish_failed(kube, cfg.node_name)
+        _post_event("slice_abort", time.monotonic() - t0)
+        return 1
+    except FatalModeError as e:
+        log.error("fatal: %s", e)
+        _post_event("fatal", time.monotonic() - t0)
+        return 1
+    except Exception:
+        # never exit without publishing failure; with no CUDA device
+        # and no CPU request the enumeration error lands here
+        log.exception("set-cc-mode failed unexpectedly")
+        _publish_failed(kube, cfg.node_name)
+        _post_event("error", time.monotonic() - t0)
+        return 1
 
 
 if __name__ == "__main__":

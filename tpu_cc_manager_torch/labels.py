@@ -92,10 +92,10 @@ DOCTOR_OK_LABEL = "tpu.google.com/cc.doctor.ok"
 #: state alone.
 ROLLOUT_ANNOTATION = "tpu.google.com/cc.rollout"
 
-#: Cross-process trace context (tpu_cc_manager.trace): a
+#: Cross-process trace context (tpu_cc_manager.trace, ISSUE 8): a
 #: W3C-traceparent-style string ("00-<trace>-<span>-01") stamped by
-#: whoever WRITES the desired-mode label — a rollout, the policy
-#: controller, or a simlab scenario — in the SAME node write as
+#: whoever WRITES the desired-mode label — the rollout driver, the
+#: policy controller, or the simlab driver — in the SAME node write as
 #: the label itself (zero extra round trips). The agent's watch
 #: surfaces it and the reconcile adopts it, so one trace id spans
 #: desired-write → watch delivery → flip → state publish across
