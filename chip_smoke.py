@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the fleet planner, the node's flip and the node
-agent) on one NVIDIA GPU and check it.
+"""Drive the PyTorch port (the fleet planner, the node's flip, the node
+agent, the rollout and the policy controller) on one NVIDIA GPU and check
+it.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -90,6 +91,27 @@ exits non-zero without them, and whenever any phase fails.
    passing doctor verdict and no problem. No platform identity or attestation provider
    is asked (``TPU_CC_IDENTITY=none``, ``TPU_CC_ATTESTATION=none``);
    ``/dev/nvidia*`` and the repository root stay as they were.
+10. The controllers that bind the planner, on one shard, with phase 9's
+   provider settings: (a) ``PolicyController.scan_once`` over a
+   ``FakeKube`` of phase 3's 100,000 nodes in 8 TPUCCPolicy pools
+   (targets on, off, devtools in turn), cold and again after 1 % of the
+   nodes change state: each K1 launch bit-equal to K1's plain version and
+   each K2 launch to K2's plain version on the block as it stood before
+   it, every policy's counts equal to the host evaluation (the
+   ``policy_scan`` line: host seconds, the kernels' device time and
+   launches); (b) ``Rollout(kube, "on", dry_run=True).run()`` over the
+   same nodes: its one K1 launch held to its plain version, one group per
+   slice and solo node, the preflight equal to the host evaluation (the
+   ``rollout_preflight`` line); (c) phase 9's node with its 8 pods beside
+   the untouched node and ``CCManagerAgent`` over ``CudaBackend`` on every
+   card, from ``devtools``: a ``Rollout`` to ``on`` with evidence
+   verification selecting the node ends ok, then a TPUCCPolicy targeting
+   ``devtools`` over it is reconciled by ``PolicyController`` until
+   Converged; each flip checked as in phase 9, K5 once per card per flip
+   (the ``rollout_flip`` and ``policy_flip`` lines: wall time, the group's
+   time, the agent's spans); (d) ``python -m tpu_cc_manager_torch rollout
+   -m on --dry-run`` and ``policy-controller --once`` in subprocesses
+   against a ``FakeApiServer`` of 1,000 converged nodes under one policy.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -102,11 +124,13 @@ visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
 are set to 0 just before phase 3 and read just after phase 5, set to 0
 again just before phase 7 and read just after it, again just before
-phase 8's (b) and read just after its (d), and again just before phase 9
-and read just after it: each kernel must have been launched on its path
-(on phase 9's, K5 and K1 or K3), K2 exactly once per card per
-incremental tick and K3 once per ``entry()`` call and, in the dry run,
-once per card plus the cross-check. Lines before the last are findings (one JSON
+phase 8's (b) and read just after its (d), again just before phase 9
+and read just after it, and again just before phase 10 and read just
+after it: each kernel must have been launched on its path (on phase 9's,
+K5 and K1 or K3; on phase 10's, K1, K2 and K5), K2 exactly once per card
+per incremental tick or scan, K3 once per ``entry()`` call and, in the
+dry run, once per card plus the cross-check, and on phase 10's path K5
+once per card per flip. Lines before the last are findings (one JSON
 object each), the ``{"kernels": [...]}`` line and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``, whose
 ``count`` is 1 (the cards this run drives) and, under ``--multi-card``,
@@ -732,6 +756,33 @@ def check_fleet_report(report: dict, snap: Any, now_s: int,
             "doctor.failing differs")
 
 
+def pool_expectation(scratch: Any, pools: List[Tuple[str, str, List[dict]]],
+                     now_s: int, stale_s: int) -> Dict[str, Dict[str, int]]:
+    """Each pool's counts, as ``analyze_pools`` reports them, from
+    :func:`host_expectation` over the rows ``scratch``'s encoding holds:
+    ``pools`` is the scan's ``(name, target mode, nodes)`` list."""
+    from tpu_cc_manager_torch import plan
+
+    psnap = scratch.encoding.snapshot()
+    rows = scratch.encoding.row_map()
+    pool_rows = np.zeros(psnap.n_nodes, np.int64)
+    for pid, (_, _, members) in enumerate(pools):
+        for node in members:
+            pool_rows[rows[node["metadata"]["name"]]] = pid
+    target = np.zeros(plan.bucket_pools(len(pools)), np.int32)
+    for pid, (_, mode, _) in enumerate(pools):
+        target[pid] = plan.MODE_CODES[mode]
+    exp = host_expectation(psnap, pool_rows, target, now_s, stale_s)
+    return {pname: {"nodes": int(exp["pool_nodes"][pid]),
+                    "converged": int(exp["pool_converged"][pid]),
+                    "failed": int(exp["pool_failed"][pid]),
+                    "divergent": int(exp["pool_nodes"][pid]
+                                     - exp["pool_converged"][pid]),
+                    "skew": int(exp["pool_skew"][pid]),
+                    "eligible": int(exp["pool_eligible"][pid])}
+            for pid, (pname, _, _) in enumerate(pools)}
+
+
 def fleet_phase(tmp: str) -> dict:
     from tpu_cc_manager_torch import plan
 
@@ -769,23 +820,8 @@ def fleet_phase(tmp: str) -> dict:
     require(first == second, "repeat pool scan changed its answer")
     require(scratch.session.stats["column_puts"] == puts,
             "repeat pool scan re-uploaded the columns")
-    psnap = scratch.encoding.snapshot()
-    rows = scratch.encoding.row_map()
-    pool_rows = np.zeros(psnap.n_nodes, np.int64)
-    for pid, (_, _, members) in enumerate(pools):
-        for node in members:
-            pool_rows[rows[node["metadata"]["name"]]] = pid
-    pb = plan.bucket_pools(N_POOLS)
-    target = np.full(pb, plan.MODE_CODES["on"], np.int32)
-    exp = host_expectation(psnap, pool_rows, target, now_s, stale_s)
-    for pid, (pname, _, _) in enumerate(pools):
-        want = {"nodes": int(exp["pool_nodes"][pid]),
-                "converged": int(exp["pool_converged"][pid]),
-                "failed": int(exp["pool_failed"][pid]),
-                "divergent": int(exp["pool_nodes"][pid]
-                                 - exp["pool_converged"][pid]),
-                "skew": int(exp["pool_skew"][pid]),
-                "eligible": int(exp["pool_eligible"][pid])}
+    for pname, want in pool_expectation(scratch, pools, now_s,
+                                        stale_s).items():
         require(first[pname] == want,
                 f"{pname}: {first[pname]} != host {want}")
     return {"nodes": FLEET_NODES, "setup_s": setup_s, "cli_s": cli_s,
@@ -2129,7 +2165,9 @@ def agent_path() -> Dict[str, int]:
 def k1_held_to_plain():
     """Hold every K1 launch the planner makes inside the block to K1's
     plain version on the same inputs (bit-equal); yields the list of
-    ``{"shape", "max_abs_err"}`` rows, one per launch."""
+    ``{"shape", "max_abs_err", "span_ms"}`` rows, one per launch
+    (``span_ms``: CUDA events around the wrapper's call, its host-side
+    launch work included)."""
     from tpu_cc_manager_torch import plan
     from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_reference
 
@@ -2137,15 +2175,21 @@ def k1_held_to_plain():
 
     def checked(block, pool_target, now_s, stale_s, *, num_pools,
                 num_slots):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
         got = real(block, pool_target, now_s, stale_s, num_pools=num_pools,
                    num_slots=num_slots)
+        end.record()
         want = fleet_tick_reference(block, pool_target, now_s, stale_s,
                                     num_pools=num_pools, num_slots=num_slots)
         err = max_abs_err(got, want)
         shape = f"nb{block.shape[1]}_pb{num_pools}"
-        require(err == 0, f"fleet_tick {shape} in the fleet scan: "
+        require(err == 0, f"fleet_tick {shape} in the scan: "
                           f"max |kernel - plain| = {err}")
-        held.append({"shape": shape, "max_abs_err": err})
+        end.synchronize()
+        held.append({"shape": shape, "max_abs_err": err,
+                     "span_ms": start.elapsed_time(end)})
         return got
 
     plan.fleet_tick_block = checked
@@ -2153,6 +2197,43 @@ def k1_held_to_plain():
         yield held
     finally:
         plan.fleet_tick_block = real
+
+
+@contextlib.contextmanager
+def k2_held_to_plain():
+    """Hold every K2 launch the planner makes inside the block to K2's
+    plain version on the blocks as they stood before the launch
+    (bit-equal); yields the list of ``{"shape", "max_abs_err",
+    "span_ms"}`` rows, one per launch, as :func:`k1_held_to_plain`'s."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.kernels.delta_scatter import (
+        delta_scatter_shards_reference)
+
+    real, held = plan.delta_scatter_shards, []
+
+    def checked(blocks, idx, vals, nb, *, shard_ids=None):
+        want = [block.clone() for block in blocks]
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        real(blocks, idx, vals, nb, shard_ids=shard_ids)
+        end.record()
+        delta_scatter_shards_reference(want, idx, vals, nb,
+                                       shard_ids=shard_ids)
+        err = max(max_abs_err({"block": got}, {"block": w})
+                  for got, w in zip(blocks, want))
+        shape = f"nb{nb}_kb{idx.shape[0]}_shards{len(blocks)}"
+        require(err == 0, f"delta_scatter {shape} in the scan: "
+                          f"max |kernel - plain| = {err}")
+        end.synchronize()
+        held.append({"shape": shape, "max_abs_err": err,
+                     "span_ms": start.elapsed_time(end)})
+
+    plan.delta_scatter_shards = checked
+    try:
+        yield held
+    finally:
+        plan.delta_scatter_shards = real
 
 
 def agent_phase(tmp: str) -> dict:
@@ -2196,6 +2277,454 @@ def agent_phase(tmp: str) -> dict:
     return {"cards": len(paths), "paths": paths, "reconciles": reconciles,
             "entry_points": entry, "fleet_scan_s": scan_s,
             "fleet_converged": True, "fleet_scan_k1": held}
+
+
+# ------------------------------- phase 10: rollout and the policy controller
+
+#: the TPUCCPolicy pools' target modes, one per pool in turn
+POLICY_TARGETS = ("on", "off", "devtools")
+#: the node label that places a node in a policy's pool
+POOL_LABEL = "tpu-cc-smoke/pool"
+#: the share of the 100,000 nodes whose state changes between two scans
+POLICY_CHURN = 0.01
+#: the standard node label a rollout and a policy select the agent's
+#: node by
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+#: seconds a flip through the controllers may take
+FLIP_TIMEOUT_S = 120
+#: policy scans the controller may take to converge its policy
+POLICY_SCANS = 20
+
+
+def policy_pools(kube: Any, nodes: List[dict]) -> List[str]:
+    """Phase 10 (a)'s cluster: ``nodes`` in ``N_POOLS`` pools by the
+    ``POOL_LABEL`` label, whole slices in turn, one TPUCCPolicy each,
+    targets taking ``POLICY_TARGETS`` in turn; returns the policies'
+    names. Every pool holds failed nodes, so that every policy reads
+    Degraded and the scans launch no rollout: they are measured
+    alone."""
+    from tpu_cc_manager_torch import labels as L
+
+    members: List[List[dict]] = [[] for _ in range(N_POOLS)]
+    for i, node in enumerate(nodes):
+        pid = (i // SLICE_HOSTS) % N_POOLS
+        node["metadata"]["labels"][POOL_LABEL] = f"pool-{pid}"
+        kube.add_node(node)
+        members[pid].append(node)
+    for pid, pool in enumerate(members):
+        require(any(n["metadata"]["labels"][L.CC_MODE_STATE_LABEL]
+                    == "failed" for n in pool),
+                f"pool-{pid} holds no failed node")
+    names = [f"pool-{pid}" for pid in range(N_POOLS)]
+    for pid, name in enumerate(names):
+        kube.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+            "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+            "kind": L.POLICY_KIND, "metadata": {"name": name},
+            "spec": {"mode": POLICY_TARGETS[pid % len(POLICY_TARGETS)],
+                     "nodeSelector": f"{POOL_LABEL}={name}"}})
+    return names
+
+
+#: the scans' kernels by their names in csrc/: K1's three launches, K2
+SCAN_KERNEL_NAMES = K1_LAUNCH_NAMES + ("delta_scatter_kernel",)
+
+
+def held_scan(fn: Callable[[], Any]) -> Tuple[Any, float, List[dict],
+                                              List[dict], dict]:
+    """``fn()`` with every K1 and K2 launch held to its plain version,
+    under ``torch.profiler``; returns its result, its host seconds, the
+    K1 and K2 rows and the device time of the port's kernels in it
+    (``torch.profiler``'s CUDA activity, by kernel name: the plain
+    versions' PyTorch kernels are not counted), or "not measured" when
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with k1_held_to_plain() as k1, k2_held_to_plain() as k2, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    kernels: Dict[str, Any] = {}
+    for evt in prof.key_averages():
+        name = next((k for k in SCAN_KERNEL_NAMES if k in evt.key), None)
+        total_us = getattr(evt, "device_time_total", 0.0)
+        if name is None or not total_us:
+            continue
+        kernels[f"{name}_ms"] = kernels.get(f"{name}_ms", 0.0) + total_us / 1e3
+        kernels[f"{name}_count"] = kernels.get(f"{name}_count", 0) + evt.count
+    device = {"kernel_ms": sum(v for k, v in kernels.items()
+                               if k.endswith("_ms")), **kernels} \
+        if kernels else "not measured"
+    return out, host_s, k1, k2, device
+
+
+def check_policy_statuses(report: dict, ctrl: Any, kube: Any,
+                          names: List[str]) -> None:
+    """Every policy's status counts against the host evaluation of the
+    rows the controller's scratch encoding holds, the pools as the
+    cluster has them now."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch import plan
+
+    now_s, stale_s = int(time.time()), int(plan._stale_after_s())
+    pools = []
+    for name in names:
+        spec = kube.get_cluster_custom(L.POLICY_GROUP, L.POLICY_VERSION,
+                                       L.POLICY_PLURAL, name)["spec"]
+        pools.append((name, spec["mode"],
+                      kube.list_nodes(spec["nodeSelector"])))
+    want = pool_expectation(ctrl._pool_scratch, pools, now_s, stale_s)
+    for name in names:
+        st = report["policies"][name]
+        got = {k: st[k] for k in ("nodes", "converged", "failed",
+                                  "divergent", "skew", "eligible")}
+        require(got == want[name],
+                f"policy {name}: status {got} != host {want[name]}")
+        # a pool with failed nodes is Degraded, never rolled: the scan
+        # is measured alone
+        require(st["phase"] == "Degraded" and st["failed"] > 0,
+                f"policy {name}: phase {st['phase']}, {st['failed']} failed")
+    require("rolling" not in report,
+            f"the scan rolled {report.get('rolling')}")
+
+
+def policy_scan(kube: Any, names: List[str]) -> dict:
+    """Phase 10 (a): ``PolicyController.scan_once`` over the 100,000
+    nodes, cold (the session rebuilds) and after ``POLICY_CHURN`` of the
+    nodes change state; every K1 and K2 launch held to its plain
+    version, every status held to the host evaluation."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.policy import PolicyController
+
+    ctrl = PolicyController(kube, port=0)
+    out: Dict[str, Any] = {"nodes": FLEET_NODES, "pools": N_POOLS,
+                           "targets": list(POLICY_TARGETS)}
+    rng = np.random.default_rng(10)
+    stats = ctrl._pool_scratch.session.stats
+    for scan in ("cold", "churn"):
+        if scan == "churn":
+            # the changed nodes keep the pools' failed nodes failed
+            live = [n for n in kube.list_nodes()
+                    if n["metadata"]["labels"][L.CC_MODE_STATE_LABEL]
+                    != "failed"]
+            picked = rng.choice(len(live), int(FLEET_NODES * POLICY_CHURN),
+                                replace=False)
+            for i in picked:
+                meta = live[i]["metadata"]
+                now = meta["labels"][L.CC_MODE_STATE_LABEL]
+                kube.set_node_labels(meta["name"], {
+                    L.CC_MODE_STATE_LABEL: "off" if now == "on" else "on"})
+        incr = stats["incr_ticks"]
+        report, host_s, k1, k2, device = held_scan(ctrl.scan_once)
+        # the cold scan rebuilds the session through K1; an incremental
+        # scan writes its rows with K2 and reads its outputs from the
+        # host mirror
+        require(scan == "churn" or k1, "the cold policy scan launched no K1")
+        check_policy_statuses(report, ctrl, kube, names)
+        want_k2 = stats["incr_ticks"] - incr
+        require(scan == "cold" or want_k2 == 1,
+                f"the churn scan took {want_k2} incremental ticks")
+        require(len(k2) == want_k2,
+                f"{len(k2)} K2 launches in the {scan} scan, not one per "
+                f"incremental tick ({want_k2})")
+        out[scan] = {"host_s": host_s, "device": device,
+                     "k1": k1, "k2": k2,
+                     "launches": {"fleet_tick": len(k1),
+                                  "delta_scatter": len(k2)}}
+    out["churned_nodes"] = int(FLEET_NODES * POLICY_CHURN)
+    out["incr_ticks"] = stats["incr_ticks"]
+    return out
+
+
+def rollout_preflight(kube: Any) -> dict:
+    """Phase 10 (b): ``Rollout(kube, "on", dry_run=True).run()`` over the
+    100,000 nodes: its one K1 launch held to its plain version, its group
+    plan counting the slices plus the solo nodes, its preflight held to
+    the host evaluation."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.rollout import Rollout
+
+    report, host_s, k1, k2, device = held_scan(
+        lambda: Rollout(kube, "on", dry_run=True).run())
+    now_s, stale_s = int(time.time()), int(plan._stale_after_s())
+    require(len(k1) == 1 and not k2,
+            f"the preflight launched K1 {len(k1)} time(s), K2 {len(k2)}")
+    nodes = kube.list_nodes()
+    slices = {n["metadata"]["labels"].get(L.TPU_SLICE_LABEL) for n in nodes}
+    solo = sum(1 for n in nodes
+               if not n["metadata"]["labels"].get(L.TPU_SLICE_LABEL))
+    want_groups = len(slices - {None}) + solo
+    require(len(report.groups) == want_groups,
+            f"{len(report.groups)} groups, not {want_groups} slices and "
+            "solo nodes")
+    require(sum(len(g.nodes) for g in report.groups) == FLEET_NODES,
+            "the group plan does not cover the fleet")
+    enc = plan.FleetEncoding()
+    enc.sync(nodes)
+    check_fleet_report(report.preflight, enc.snapshot(), now_s, stale_s)
+    outcomes: Dict[str, int] = {}
+    for g in report.groups:
+        outcomes[g.outcome] = outcomes.get(g.outcome, 0) + 1
+    return {"nodes": FLEET_NODES, "host_s": host_s, "device": device,
+            "k1": k1, "groups": len(report.groups),
+            "outcomes": outcomes, "failed": len(report.preflight["failed"]),
+            "launches": {"fleet_tick": len(k1), "delta_scatter": len(k2)}}
+
+
+@contextlib.contextmanager
+def flip_agent(tmp: str):
+    """Phase 10 (c)'s node: phase 9's node with its 8 GPU pods beside the
+    untouched node, ``CCManagerAgent`` over ``CudaBackend`` on every card
+    with a node drain, running until the block ends; its first reconcile
+    flips the cards to ``devtools``. Yields ``(kube, agent, backend,
+    paths, spans)``."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.agent import CCManagerAgent
+    from tpu_cc_manager_torch.config import AgentConfig
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+    from tpu_cc_manager_torch.trace import Tracer
+
+    backend = CudaBackend(state_dir=os.path.join(tmp, "flip-state"))
+    paths = [c.path for c in backend.find_tpus()[0]]
+    kube = FakeKube()
+    agent_nodes(kube, "devtools")
+    for name in AGENT_NODES:
+        kube.set_node_labels(name, {HOSTNAME_LABEL: name})
+    spans: Dict[str, List[float]] = {}
+    tracer = Tracer()
+    tracer.add_sink(lambda s: spans.setdefault(s.name, []).append(s.dur_s))
+    cfg = AgentConfig(node_name=AGENT_NODE, default_mode="devtools",
+                      health_port=0, drain_strategy="node",
+                      readiness_file=os.path.join(tmp, "flip-ready"))
+    agent = CCManagerAgent(kube, cfg, backend=backend, tracer=tracer)
+    agent.watcher.watch_timeout_s = 1
+    agent.watcher.backoff_s = 0.05
+    gpu_pods(kube, AGENT_NODE, "job-start")
+    thread = threading.Thread(target=agent.run, name="smoke-flip-agent")
+    thread.start()
+    try:
+        wait_for(lambda: agent.reconcile_count >= 1
+                 and kube.get_node(AGENT_NODE)["metadata"]["labels"].get(
+                     L.CC_MODE_STATE_LABEL) == "devtools", FLIP_TIMEOUT_S,
+                 "the agent's first reconcile to devtools")
+        wait_for(lambda: evidence_attests(kube.get_node(AGENT_NODE), paths,
+                                          "devtools"),
+                 PUBLISH_WAIT_S, "evidence of devtools")
+        yield kube, agent, backend, paths, spans
+    finally:
+        agent.shutdown()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "the flip agent did not stop")
+
+
+def check_flip(kube: Any, agent: Any, paths: List[str], mode: str,
+               keep: List[str], other_labels: dict, probes: int,
+               gen: int, backend: Any) -> int:
+    """The agent's node flipped to ``mode`` and the other node untouched;
+    returns the K5 launches of the flip (one per card)."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+
+    node = kube.get_node(AGENT_NODE)
+    require(node["metadata"]["labels"].get(L.CC_MODE_STATE_LABEL) == mode,
+            f"state label after the {mode} flip: {node['metadata']['labels']}")
+    want = {p: {"cc": mode, "ici": "off"} for p in paths}
+    require(agent.engine.get_modes() == want,
+            f"get_modes after {mode}: {agent.engine.get_modes()}")
+    require(pods_on(kube, AGENT_NODE) == [],
+            f"pods left on the node after {mode}")
+    other = kube.get_node(OTHER_NODE)
+    require(pods_on(kube, OTHER_NODE) == keep
+            and other["metadata"]["labels"] == other_labels
+            and not (other.get("spec") or {}).get("unschedulable"),
+            f"the other node changed during the {mode} flip")
+    require(backend.runtime_gen == gen + 1,
+            f"runtime_gen {gen} -> {backend.runtime_gen} on {mode}")
+    launched = LAUNCHES["probe_add_one"] - probes
+    require(launched == len(paths),
+            f"{launched} probe_add_one launches for {len(paths)} card(s) "
+            f"on the {mode} flip")
+    return launched
+
+
+def controller_flips(tmp: str) -> Tuple[dict, dict]:
+    """Phase 10 (c): from ``devtools``, a ``Rollout`` to ``on`` with
+    evidence verification, selecting the agent's node, then a TPUCCPolicy
+    targeting ``devtools`` over it, reconciled by ``PolicyController``
+    until healthy; each flip checked on the card, each K1 and K2 launch
+    of the controllers held to its plain version."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+    from tpu_cc_manager_torch.policy import PolicyController
+    from tpu_cc_manager_torch.rollout import Rollout
+
+    selector = f"{HOSTNAME_LABEL}={AGENT_NODE}"
+    with flip_agent(tmp) as (kube, agent, backend, paths, spans), \
+            k1_held_to_plain() as k1, k2_held_to_plain() as k2:
+        keep = pods_on(kube, OTHER_NODE)
+        other_labels = kube.get_node(OTHER_NODE)["metadata"]["labels"]
+
+        # the rollout, judging the agent's evidence
+        gpu_pods(kube, AGENT_NODE, "job-rollout")
+        spans.clear()
+        groups: Dict[str, float] = {}
+        probes, gen = LAUNCHES["probe_add_one"], backend.runtime_gen
+        t0 = time.perf_counter()
+        report = Rollout(
+            kube, "on", selector=selector, group_timeout_s=FLIP_TIMEOUT_S,
+            poll_s=0.05, verify_evidence=True,
+            on_group=lambda name, outcome, done, total: groups.setdefault(
+                name, time.perf_counter() - t0)).run()
+        wall_s = time.perf_counter() - t0
+        require(report.ok and report.succeeded == [f"node/{AGENT_NODE}"],
+                f"the rollout to on: {report.to_json()}")
+        k5 = check_flip(kube, agent, paths, "on", keep, other_labels,
+                        probes, gen, backend)
+        rollout = {"mode": "on", "wall_s": wall_s, "group_s": groups,
+                   "probe_launches": k5, "cards": len(paths),
+                   "k1_held": list(k1),
+                   "spans_s": {k: sum(v) for k, v in spans.items()}}
+        finding(phase="rollout_flip", **rollout)
+
+        # the policy, through the controller's own rollout
+        gpu_pods(kube, AGENT_NODE, "job-policy")
+        spans.clear()
+        probes, gen = LAUNCHES["probe_add_one"], backend.runtime_gen
+        kube.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+            "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+            "kind": L.POLICY_KIND, "metadata": {"name": "agent-node"},
+            "spec": {"mode": "devtools", "nodeSelector": selector,
+                     "strategy": {"groupTimeoutSeconds": FLIP_TIMEOUT_S}}})
+        ctrl = PolicyController(kube, port=0, poll_s=0.05)
+        t0 = time.perf_counter()
+        phases = []
+        for _ in range(POLICY_SCANS):
+            st = ctrl.scan_once()["policies"]["agent-node"]
+            phases.append(st["phase"])
+            if st["phase"] == "Converged":
+                break
+        wall_s = time.perf_counter() - t0
+        require(phases[-1] == "Converged",
+                f"the policy never converged: phases {phases}, {st}")
+        k5 = check_flip(kube, agent, paths, "devtools", keep, other_labels,
+                        probes, gen, backend)
+        policy = {"mode": "devtools", "wall_s": wall_s, "scans": len(phases),
+                  "phases": phases, "probe_launches": k5,
+                  "k1_held": k1[len(rollout["k1_held"]):], "k2_held": list(k2),
+                  "cards": len(paths), "incr_ticks":
+                      ctrl._pool_scratch.session.stats["incr_ticks"],
+                  "spans_s": {k: sum(v) for k, v in spans.items()}}
+        finding(phase="policy_flip", **policy)
+    return rollout, policy
+
+
+def controller_entry_points(tmp: str) -> dict:
+    """Phase 10 (d): ``rollout -m on --dry-run`` and ``policy-controller
+    --once`` in subprocesses against a ``FakeApiServer`` of ``CLI_NODES``
+    converged nodes under one TPUCCPolicy."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.k8s.apiserver import FakeApiServer
+
+    out: Dict[str, Any] = {"nodes": CLI_NODES}
+    srv = FakeApiServer(port=0).start()
+    try:
+        for node in make_nodes(CLI_NODES, seed=11):
+            node["metadata"]["labels"][L.CC_MODE_STATE_LABEL] = "on"
+            srv.store.add_node(node)
+        srv.store.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+            "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+            "kind": L.POLICY_KIND, "metadata": {"name": "fleet"},
+            "spec": {"mode": "on",
+                     "nodeSelector": L.TPU_ACCELERATOR_LABEL}})
+        kubeconfig = os.path.join(tmp, "controller-kubeconfig.yaml")
+        write_kubeconfig(kubeconfig, srv.port)
+        env = dict(os.environ, KUBECONFIG=kubeconfig, **NO_PROVIDERS,
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        env.pop("TPU_CC_TORCH_DEVICE", None)
+
+        t0 = time.perf_counter()
+        p = agent_cli(["rollout", "-m", "on", "--dry-run"], env)
+        out["rollout_dry_run_s"] = time.perf_counter() - t0
+        require(p.returncode == 0,
+                f"rollout --dry-run exited {p.returncode}: {p.stderr[-2000:]}")
+        plan_out = json.loads(p.stdout)
+        require(plan_out["ok"] is True
+                and plan_out["preflight"]["nodes"] == CLI_NODES
+                and sum(len(g["nodes"]) for g in plan_out["groups"])
+                == CLI_NODES, f"rollout --dry-run printed {p.stdout[:2000]}")
+        out["rollout_groups"] = len(plan_out["groups"])
+
+        t0 = time.perf_counter()
+        p = agent_cli(["policy-controller", "--once"], env)
+        out["policy_once_s"] = time.perf_counter() - t0
+        require(p.returncode == 0,
+                f"policy-controller --once exited {p.returncode}: "
+                f"{p.stdout[-2000:]} {p.stderr[-2000:]}")
+        report = json.loads(p.stdout)
+        st = report["policies"]["fleet"]
+        require(report["unhealthy_policies"] == []
+                and st["phase"] == "Converged"
+                and st["converged"] == CLI_NODES,
+                f"policy-controller --once reported {report}")
+        out["policy_phase"] = st["phase"]
+    finally:
+        srv.stop()
+    return out
+
+
+def controller_path() -> Dict[str, int]:
+    """Phase 10 with its launch counts set to 0 just before it and read
+    just after it: K1 at least once, K2 exactly once per card per
+    incremental scan, K5 once per card per flip."""
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.device import base as device_base
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    nodes_before = dev_nodes()
+    cwd_before = set(os.listdir(ROOT))
+    set_mesh(1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, \
+            no_providers():
+        kube = FakeKube()
+        names = policy_pools(kube, make_nodes(FLEET_NODES, seed=100))
+        device_base.set_backend(None)
+        reset_launches()
+        try:
+            scan = policy_scan(kube, names)
+            preflight = rollout_preflight(kube)
+            rollout, policy = controller_flips(tmp)
+            entry = controller_entry_points(tmp)
+        finally:
+            device_base.set_backend(None)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    cards = len(plan._by_device(plan._planner_mesh(DEVICE)))
+    incr = scan["incr_ticks"] + policy["incr_ticks"]
+    finding(phase="policy_scan", **scan)
+    finding(phase="rollout_preflight", **preflight)
+    finding(phase="controller_entry_points", **entry)
+    finding(phase="controller_path", launches=launches,
+            incremental_scans=incr, flips=3)
+    require(launches["fleet_tick"] > 0, "the controller path never launched "
+                                        "fleet_tick")
+    require(launches["delta_scatter"] == cards * incr,
+            f"{launches['delta_scatter']} delta_scatter launches, not one "
+            f"per card per incremental scan ({cards} x {incr})")
+    # the agent's first flip to devtools, the rollout's and the policy's
+    flips = 3 * rollout["cards"]
+    require(launches["probe_add_one"] == flips,
+            f"{launches['probe_add_one']} probe_add_one launches, not one "
+            f"per card per flip ({flips})")
+    require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
+    require(set(os.listdir(ROOT)) == cwd_before,
+            "the controllers wrote into the repository root")
+    return launches
 
 
 # ---------------------------------------------------------------- main
@@ -2321,6 +2850,7 @@ def run() -> None:
     launches["mesh_combine"] = mesh_launches["mesh_combine"]
 
     agent_launches = agent_path()
+    controller_launches = controller_path()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2331,6 +2861,7 @@ def run() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "agent_path_launches": agent_launches[name],
+            "controller_path_launches": controller_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
             "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
             "shape": main["shape"], "ms": main["ms"],

@@ -1,13 +1,19 @@
-"""The port's node-facing entry points held to the reference's.
+"""The port's node-facing and controller entry points held to the
+reference's.
 
 ``set-cc-mode`` (success with a node drain, an invalid mode, a slice
 abort, an enumeration error), ``doctor`` (``--offline``, ``--publish``)
 and ``webhook`` (a certificate that does not exist) run through each
 package's own ``main()``, each over its own package's ``FakeKube`` and
-fake device backend. The return codes, the node each side ends with, the
-Events posted and what each side printed must be equal, timestamps,
-durations and the random suffixes of Event names masked
-(``tests/torch_mirror.py``).
+fake device backend. ``rollout`` (a dry run, a bad mode, ``--resume``
+with a mode) and ``policy-controller --once`` (a healthy fleet, an
+unhealthy one, a cluster without the TPUCCPolicy CRD) run the same way
+against each package's own ``FakeApiServer`` over HTTP, through a
+kubeconfig, the port planning on the CPU (``TPU_CC_TORCH_DEVICE=cpu``);
+the rejected rollouts must send the server no request. The return
+codes, the node each side ends with, the Events posted and what each
+side printed must be equal, timestamps, durations and the random
+suffixes of Event names masked (``tests/torch_mirror.py``).
 
 Beyond the parity cases: with no CUDA device and no request for the CPU,
 the port's ``set-cc-mode`` fails, publishes ``cc.mode.state=failed`` and
@@ -283,3 +289,131 @@ def test_webhook_refuses_a_missing_certificate(monkeypatch, capsys,
 
     got = both_cli(case, monkeypatch, capsys, tmp_path)
     assert got["rc"] == 1 and got["printed"] == ""
+
+
+# ------------------------------------ rollout and policy-controller
+
+
+def _serve(side, tmp_path, store=None, unhealthy=False):
+    """Each side's own ``FakeApiServer`` over three nodes (a 2-node slice
+    and a solo node, at ``off``; with ``unhealthy``, the solo node
+    failed) and a ``TPUCCPolicy`` targeting ``off``, counting the
+    requests it serves; returns the server, the request paths and a
+    kubeconfig naming it."""
+    apiserver = side.module("k8s.apiserver")
+    objects = side.module("k8s.objects")
+    srv = apiserver.FakeApiServer(store=store)
+    paths = []
+    base = srv.httpd.RequestHandlerClass
+
+    class Counting(base):
+        def parse_request(self):
+            ok = super().parse_request()
+            paths.append(self.path)
+            return ok
+
+    srv.httpd.RequestHandlerClass = Counting
+    for name, slice_id in (("s-a", "s"), ("s-b", "s"), ("solo", None)):
+        labels = {L.TPU_ACCELERATOR_LABEL: "tpu-v5p-slice",
+                  L.CC_MODE_LABEL: "off", L.CC_MODE_STATE_LABEL: "off"}
+        if slice_id:
+            labels[L.TPU_SLICE_LABEL] = slice_id
+        if unhealthy and name == "solo":
+            labels[L.CC_MODE_STATE_LABEL] = "failed"
+        srv.store.add_node(objects.make_node(name, labels=labels))
+    srv.store.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+        "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+        "kind": L.POLICY_KIND, "metadata": {"name": "pool"},
+        "spec": {"mode": "off",
+                 "nodeSelector": L.TPU_ACCELERATOR_LABEL}})
+    kubeconfig = tmp_path / f"kubeconfig-{side.name}.yaml"
+    kubeconfig.write_text(
+        "apiVersion: v1\nkind: Config\ncurrent-context: t\n"
+        "contexts: [{name: t, context: {cluster: c, user: u}}]\n"
+        f"clusters: [{{name: c, cluster: {{server: \"{srv.url}\"}}}}]\n"
+        "users: [{name: u, user: {}}]\n")
+    return srv, paths, str(kubeconfig)
+
+
+def _api_cli(side, mp, capsys, tmp_path, argv, store=None,
+             unhealthy=False):
+    """Run ``argv`` through ``side``'s ``main()`` against its own
+    ``FakeApiServer``; what it leaves behind, and the requests served."""
+    mp.setenv(tplan.DEVICE_ENV, "cpu")
+    mp.setenv("TPU_CC_PLANNER_WARMUP", "0")
+    if store is not None:
+        store = store(side)
+    srv, paths, kubeconfig = _serve(side, tmp_path, store, unhealthy)
+    with srv:
+        rc = side.module("__main__").main(["--kubeconfig", kubeconfig,
+                                           *argv])
+        out = _outcome(srv.store, rc, capsys.readouterr().out)
+    out["policy_status"] = mask(srv.store.list_cluster_custom(
+        L.POLICY_GROUP, L.POLICY_VERSION, L.POLICY_PLURAL)) \
+        if store is None else None
+    return out, paths
+
+
+def test_rollout_dry_run_prints_the_plan(monkeypatch, capsys, tmp_path):
+    def case(side, mp):
+        return _api_cli(side, mp, capsys, tmp_path,
+                        ["rollout", "-m", "on", "--dry-run"])[0]
+
+    got = both_cli(case, monkeypatch, capsys, tmp_path)
+    assert got["rc"] == 0
+    groups = got["printed"]["groups"]
+    assert [(g["name"], g["nodes"]) for g in groups] == [
+        ("node/solo", ["solo"]), ("slice/s", ["s-a", "s-b"])]
+    assert {g["outcome"] for g in groups} == {"planned"}
+    assert got["printed"]["preflight"]["nodes"] == 3
+    # a dry run patches nothing
+    assert {n["labels"][L.CC_MODE_LABEL] for n in got["nodes"].values()} \
+        == {"off"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["rollout", "-m", "bogus"],
+    ["rollout", "--resume", "-m", "on"],
+], ids=["bad-mode", "resume-with-mode"])
+def test_rollout_refuses_bad_arguments_before_any_request(
+        argv, monkeypatch, capsys, tmp_path):
+    def case(side, mp):
+        out, paths = _api_cli(side, mp, capsys, tmp_path, argv)
+        return out, paths
+
+    got, paths = both_cli(case, monkeypatch, capsys, tmp_path)
+    assert got["rc"] == 1 and got["printed"] == ""
+    assert paths == []
+
+
+def _no_crd(side):
+    class NoCrdKube(side.module("k8s.fake").FakeKube):
+        def list_cluster_custom(self, *a, **k):
+            raise side.module("k8s.client").ApiException(404, "not found")
+
+    return NoCrdKube()
+
+
+@pytest.mark.parametrize("unhealthy,store,rc", [
+    (False, None, 0), (True, None, 1), (False, _no_crd, 1),
+], ids=["healthy", "unhealthy", "crd-missing"])
+def test_policy_controller_once(unhealthy, store, rc, monkeypatch, capsys,
+                                tmp_path):
+    def case(side, mp):
+        return _api_cli(side, mp, capsys, tmp_path,
+                        ["policy-controller", "--once"], store=store,
+                        unhealthy=unhealthy)[0]
+
+    got = both_cli(case, monkeypatch, capsys, tmp_path)
+    assert got["rc"] == rc
+    report = got["printed"]
+    if store is _no_crd:
+        assert report["crd_missing"] is True
+    elif unhealthy:
+        assert report["unhealthy_policies"] == ["pool"]
+        assert report["policies"]["pool"]["phase"] == "Degraded"
+        assert report["policies"]["pool"]["failed"] == 1
+    else:
+        assert report["unhealthy_policies"] == []
+        assert report["policies"]["pool"]["phase"] == "Converged"
+        assert report["policies"]["pool"]["converged"] == 3

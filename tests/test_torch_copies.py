@@ -26,6 +26,7 @@ COPIES = (
     "obs.py", "tsring.py", "watch.py", "watchdog.py", "profiler.py",
     "evidence.py", "leader.py", "fleet.py", "labels.py", "k8s/batch.py",
     "drain.py", "slice_coord.py", "doctor.py", "agent.py", "webhook.py",
+    "rollout.py", "policy.py",
 )
 
 #: module -> [(name, reference block, port block)]

@@ -325,8 +325,6 @@ def test_get_cc_mode_cli(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["rollout", "-m", "on"],
-    ["policy-controller", "--interval", "5"], ["policy-controller"],
     ["simlab", "validate", "x.json"],
 ])
 def test_other_subcommands_exit_2_naming_their_roadmap_item(argv, capsys):

@@ -27,12 +27,14 @@ passes.
 
 Masked before the comparison, and nothing else: timestamps (ISO-8601
 strings, the ``firstTimestamp``/``lastTimestamp``/``timestamp``/``at``
-fields, the slice heartbeat's clock reading, and the ``in 0.12s``
-durations an Event message carries), uuids and the random suffixes of
-one-shot Event names, trace ids (W3C ``traceparent`` values), and the
-evidence digests computed over a document that holds a timestamp (each
-side's digest is checked against its own document by the case's own
-evidence assertions).
+fields, the slice heartbeat's clock reading, the rollout record's
+``started`` and ``heartbeat`` clock readings, and the ``in 0.12s``
+durations an Event message carries), uuids, the random suffixes of
+one-shot and policy Event names and the random ``id`` and ``owner`` of
+a document that holds a clock reading (a rollout record), trace ids
+(``traceparent`` values), and the evidence digests computed over a
+document that holds a timestamp (each side's digest is checked against
+its own document by the case's own evidence assertions).
 """
 
 from __future__ import annotations
@@ -58,12 +60,19 @@ _ISO = re.compile(
     r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(?:\.\d+)?(?:Z|[+-]\d{2}:?\d{2})?")
 _UUID = re.compile(
     r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
-_TRACEPARENT = re.compile(r"\b00-[0-9a-f]{32}-[0-9a-f]{16}-[0-9a-f]{2}\b")
+#: a traceparent: W3C ids, or this build's counter-style ids (a random
+#: per-tracer prefix and a counter, ``trace.Tracer._next_id``)
+_TRACEPARENT = re.compile(r"\b00-[0-9a-f]{9,32}-[0-9a-f]{9,16}-[0-9a-f]{2}\b")
 _DURATION = re.compile(r"\bin \d+\.\d+s\b")
-_ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile)\.)[0-9a-f]+")
+_ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile)\.|\.ccpolicy\.)[0-9a-f]+")
 _TS_KEYS = frozenset({"firstTimestamp", "lastTimestamp", "timestamp", "at",
-                      "eventTime", "creationTimestamp"})
+                      "eventTime", "creationTimestamp",
+                      # the rollout record's clock readings (epoch seconds)
+                      "started", "heartbeat"})
 _DIGEST_KEYS = frozenset({"digest"})
+#: the random ids a rollout record carries (its id, its owner's fencing
+#: token), masked in a document that holds a clock reading
+_RANDOM_ID_KEYS = frozenset({"id", "owner"})
 
 
 def _mask_str(s: str) -> str:
@@ -81,6 +90,7 @@ def mask(value, key=None):
     if isinstance(value, dict):
         holds_time = any(k in _TS_KEYS for k in value)
         return {k: ("<digest>" if holds_time and k in _DIGEST_KEYS
+                    else "<id>" if holds_time and k in _RANDOM_ID_KEYS
                     else mask(v, k)) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
         return [mask(v) for v in value]
@@ -112,11 +122,14 @@ PORT = Side(name="port", pkg="tpu_cc_manager_torch")
 
 def port_twin(name: str, edits=()):
     """The reference test module ``name`` as the port runs it. ``edits``
-    are ``(why, old, new)`` text replacements, each matching once."""
+    are ``(why, old, new)`` text replacements, each matching once, or
+    ``(why, old, new, count)``, matching ``count`` times."""
     path = TESTS / f"{name}.py"
     src = rewrite_imports(path.read_text())
-    for why, old, new in edits:
-        assert src.count(old) == 1, f"{name}: edit {why!r} no longer matches"
+    for why, old, new, *count in edits:
+        want = count[0] if count else 1
+        assert src.count(old) == want, (
+            f"{name}: edit {why!r} no longer matches {want} time(s)")
         src = src.replace(old, new)
     mod = types.ModuleType(f"{name}__port")
     mod.__file__ = str(path)
@@ -359,6 +372,11 @@ def run_case(side: Side, testmod, name: str, params: dict, request,
                         testmod, arg)._get_wrapped_function()()
                 else:
                     kwargs[arg] = request.getfixturevalue(arg)
+            for fixture in ("capsys", "capfd"):
+                if fixture in kwargs:
+                    # what the other side printed and its case left
+                    # unread is not this side's output
+                    kwargs[fixture].readouterr()
             fn(**kwargs)
             return rec.snapshot(str(side_tmp))
     finally:
@@ -408,3 +426,32 @@ def both(testmods, name: str, params: dict, request, tmp_path, versions,
     assert got == want, (f"port and reference differ ({versions}): "
                          f"{_first_difference(want, got)}")
     return got
+
+
+def sharded(params, planner):
+    """``params`` (from :func:`cases`) with a planner shard count: every
+    case at one shard, and the cases named in ``planner`` (those that
+    reach the planner) at 8 shards too (``TPU_CC_PLANNER_MESH``)."""
+    out = []
+    for p in params:
+        name, kw = p.values
+        out.append(pytest.param(name, kw, 1, id=f"{p.id}-mesh1"))
+        if name in planner:
+            out.append(pytest.param(name, kw, 8, id=f"{p.id}-mesh8"))
+    return out
+
+
+@contextlib.contextmanager
+def planner_calls(mp: pytest.MonkeyPatch, entry_points):
+    """Count the calls of each ``(module, name)`` planner entry point the
+    controllers bound at import; yields the list of names called."""
+    calls = []
+    for module, fname in entry_points:
+        real = getattr(module, fname)
+
+        def counted(*a, _real=real, _name=fname, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+
+        mp.setattr(module, fname, counted)
+    yield calls

@@ -1,7 +1,8 @@
 """The reference's racy mirror cases, run against themselves.
 
 A case in the ``RACY`` table of ``tests/test_torch_{agent,multinode,
-slice}.py`` is compared on a part of what it leaves behind, on the claim
+slice,rollout,policy}.py`` is compared on a part of what it leaves
+behind, on the claim
 that the reference differs from itself run to run past that part. This
 runs each such case on the reference ``MIRROR_RUNS`` times (10 by
 default) and prints one JSON line per case: the runs, how many left a
@@ -26,17 +27,23 @@ pytest.importorskip("torch")
 
 import test_torch_agent  # noqa: E402
 import test_torch_multinode  # noqa: E402
+import test_torch_policy  # noqa: E402
+import test_torch_rollout  # noqa: E402
 import test_torch_slice  # noqa: E402
 from torch_mirror import REF, _first_difference, run_case  # noqa: E402
 
 RUNS = int(os.environ.get("MIRROR_RUNS", "10"))
 CASES = [(mod, name) for mod in (test_torch_agent, test_torch_multinode,
-                                 test_torch_slice)
+                                 test_torch_slice, test_torch_rollout,
+                                 test_torch_policy)
          for name in sorted(mod.RACY)]
 
 
 @pytest.mark.parametrize("mod,name", CASES, ids=[n for _, n in CASES])
-def test_reference_against_itself(mod, name, request, tmp_path):
+def test_reference_against_itself(mod, name, request, tmp_path,
+                                  monkeypatch):
+    if hasattr(mod, "prepare"):
+        mod.prepare(monkeypatch)
     view = getattr(mod, "_view", lambda _name, _side, snap: snap)
     part = mod.RACY[name][0]
     snaps = []
