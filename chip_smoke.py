@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the fleet planner, the node's flip, the node
-agent, the rollout and the policy controller) on one NVIDIA GPU and check
-it.
+agent, the rollout, the policy controller and the sharded control plane)
+on one NVIDIA GPU and check it.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -112,6 +112,33 @@ exits non-zero without them, and whenever any phase fails.
    time, the agent's spans); (d) ``python -m tpu_cc_manager_torch rollout
    -m on --dry-run`` and ``policy-controller --once`` in subprocesses
    against a ``FakeApiServer`` of 1,000 converged nodes under one policy.
+11. The sharded control plane, on one planner shard, with phase 9's
+   provider settings. (a) ``ShardManager`` (4 consistent-hash shards on
+   2 hosts, a lease each at the reference's lease settings, a fleet and a
+   policy controller per held lease) over a ``FakeKube`` of phase 3's
+   100,000 nodes in 8 TPUCCPolicy pools, two per shard: once every shard
+   has scanned, each shard's fleet report and policy statuses equal the
+   host evaluation of its partition, the policies' counts equal phase
+   10's, and the merged ``/fleet/metrics`` fetched from the manager is a
+   valid exposition holding the fleet's counts; then 1 % of the nodes
+   change and every shard's reports follow (the rows a stale-list
+   reconcile left wrong are counted first); then host-0 dies and host-1
+   takes its shards, whose new controllers scan again; no lease changes
+   hands otherwise, and device memory is back to its level once the
+   manager and its threads are gone (the ``shard_scan`` line). (b) A
+   ``FleetObserver`` with ``deployments/slo.yaml``'s objectives over the
+   manager's ``/fleet/metrics`` and each shard's exposition, before and
+   after the churn: every scrape valid, the merge valid, no objective
+   that can never fire (``slo_observe``). (c) ``FederationManager`` over
+   two regions of 10,000 nodes in 4 pools on 2 shards each, phase 9's
+   node and pods in region-a with ``CCManagerAgent`` over ``CudaBackend``:
+   a posture to ``on`` with region-b's window 60 s away flips the
+   agent's cards (K5 once per card) and region-a converges while region-b
+   reads ``off``; region-a's evacuation collapses region-b's window and
+   cordons region-a; once the posture holds, five converged checks read
+   no node from either API server (``federation``). Every K1 and K2
+   launch of a shard or region thread is recorded with its difference
+   from its plain version and required 0 in the main thread.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -125,12 +152,15 @@ visible card (it fails with one). Phases 1-7 run on one shard
 are set to 0 just before phase 3 and read just after phase 5, set to 0
 again just before phase 7 and read just after it, again just before
 phase 8's (b) and read just after its (d), again just before phase 9
-and read just after it, and again just before phase 10 and read just
-after it: each kernel must have been launched on its path (on phase 9's,
-K5 and K1 or K3; on phase 10's, K1, K2 and K5), K2 exactly once per card
-per incremental tick or scan, K3 once per ``entry()`` call and, in the
-dry run, once per card plus the cross-check, and on phase 10's path K5
-once per card per flip. Lines before the last are findings (one JSON
+and read just after it, again just before phase 10 and read just after
+it, and again just before phase 11 and read just after it: each kernel
+must have been launched on its path (on phase 9's, K5 and K1 or K3; on
+phase 10's, K1, K2 and K5; on phase 11's, K1 from every shard and
+region shard, K2 and K5), K2 exactly once per card per incremental tick
+or scan (on phase 11's, per row-writing tick of each shard session), K3
+once per ``entry()`` call and, in the dry run, once per card plus the
+cross-check, and on the paths of phases 10 and 11 K5 once per card per
+flip. Lines before the last are findings (one JSON
 object each), the ``{"kernels": [...]}`` line and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``, whose
 ``count`` is 1 (the cards this run drives) and, under ``--multi-card``,
@@ -140,6 +170,7 @@ the number of visible cards.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -756,15 +787,16 @@ def check_fleet_report(report: dict, snap: Any, now_s: int,
             "doctor.failing differs")
 
 
-def pool_expectation(scratch: Any, pools: List[Tuple[str, str, List[dict]]],
+def pool_expectation(encoding: Any,
+                     pools: List[Tuple[str, str, List[dict]]],
                      now_s: int, stale_s: int) -> Dict[str, Dict[str, int]]:
     """Each pool's counts, as ``analyze_pools`` reports them, from
-    :func:`host_expectation` over the rows ``scratch``'s encoding holds:
-    ``pools`` is the scan's ``(name, target mode, nodes)`` list."""
+    :func:`host_expectation` over the rows ``encoding`` holds: ``pools``
+    is the scan's ``(name, target mode, nodes)`` list."""
     from tpu_cc_manager_torch import plan
 
-    psnap = scratch.encoding.snapshot()
-    rows = scratch.encoding.row_map()
+    psnap = encoding.snapshot()
+    rows = encoding.row_map()
     pool_rows = np.zeros(psnap.n_nodes, np.int64)
     for pid, (_, _, members) in enumerate(pools):
         for node in members:
@@ -820,7 +852,7 @@ def fleet_phase(tmp: str) -> dict:
     require(first == second, "repeat pool scan changed its answer")
     require(scratch.session.stats["column_puts"] == puts,
             "repeat pool scan re-uploaded the columns")
-    for pname, want in pool_expectation(scratch, pools, now_s,
+    for pname, want in pool_expectation(scratch.encoding, pools, now_s,
                                         stale_s).items():
         require(first[pname] == want,
                 f"{pname}: {first[pname]} != host {want}")
@@ -2162,78 +2194,89 @@ def agent_path() -> Dict[str, int]:
 
 
 @contextlib.contextmanager
-def k1_held_to_plain():
-    """Hold every K1 launch the planner makes inside the block to K1's
-    plain version on the same inputs (bit-equal); yields the list of
-    ``{"shape", "max_abs_err", "span_ms"}`` rows, one per launch
-    (``span_ms``: CUDA events around the wrapper's call, its host-side
-    launch work included)."""
-    from tpu_cc_manager_torch import plan
-    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_reference
-
-    real, held = plan.fleet_tick_block, []
-
-    def checked(block, pool_target, now_s, stale_s, *, num_pools,
-                num_slots):
-        start, end = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        start.record()
-        got = real(block, pool_target, now_s, stale_s, num_pools=num_pools,
-                   num_slots=num_slots)
-        end.record()
-        want = fleet_tick_reference(block, pool_target, now_s, stale_s,
-                                    num_pools=num_pools, num_slots=num_slots)
-        err = max_abs_err(got, want)
-        shape = f"nb{block.shape[1]}_pb{num_pools}"
-        require(err == 0, f"fleet_tick {shape} in the scan: "
-                          f"max |kernel - plain| = {err}")
-        end.synchronize()
-        held.append({"shape": shape, "max_abs_err": err,
-                     "span_ms": start.elapsed_time(end)})
-        return got
-
-    plan.fleet_tick_block = checked
-    try:
-        yield held
-    finally:
-        plan.fleet_tick_block = real
-
-
-@contextlib.contextmanager
-def k2_held_to_plain():
-    """Hold every K2 launch the planner makes inside the block to K2's
-    plain version on the blocks as they stood before the launch
-    (bit-equal); yields the list of ``{"shape", "max_abs_err",
-    "span_ms"}`` rows, one per launch, as :func:`k1_held_to_plain`'s."""
+def held_to_plain():
+    """Every K1 and K2 launch the planner makes inside the block, from
+    whatever thread, compared with its plain version on the same inputs
+    (K2 on the blocks as they stood before the launch). A controller's
+    scan loop logs and swallows what its scan raises
+    (``FleetController.run``), so the comparison records instead of
+    raising: yields the list of ``{"kernel", "shape", "max_abs_err",
+    "span_ms", "thread", "t"}`` rows, one per launch, which the caller
+    holds with :func:`require_plain` after the block (``max_abs_err``
+    the error's text where the comparison itself failed; ``span_ms``
+    CUDA events around the wrapper's call, its host-side launch work and
+    any other thread's work on the stream included; ``t`` the launch on
+    the host clock)."""
     from tpu_cc_manager_torch import plan
     from tpu_cc_manager_torch.kernels.delta_scatter import (
         delta_scatter_shards_reference)
+    from tpu_cc_manager_torch.kernels.fleet_tick import fleet_tick_reference
 
-    real, held = plan.delta_scatter_shards, []
+    real_k1, real_k2 = plan.fleet_tick_block, plan.delta_scatter_shards
+    rows: List[dict] = []
 
-    def checked(blocks, idx, vals, nb, *, shard_ids=None):
-        want = [block.clone() for block in blocks]
+    def timed(launch: Callable[[], Any]) -> Tuple[Any, float]:
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
         start.record()
-        real(blocks, idx, vals, nb, shard_ids=shard_ids)
+        got = launch()
         end.record()
-        delta_scatter_shards_reference(want, idx, vals, nb,
-                                       shard_ids=shard_ids)
-        err = max(max_abs_err({"block": got}, {"block": w})
-                  for got, w in zip(blocks, want))
-        shape = f"nb{nb}_kb{idx.shape[0]}_shards{len(blocks)}"
-        require(err == 0, f"delta_scatter {shape} in the scan: "
-                          f"max |kernel - plain| = {err}")
         end.synchronize()
-        held.append({"shape": shape, "max_abs_err": err,
-                     "span_ms": start.elapsed_time(end)})
+        return got, start.elapsed_time(end)
 
-    plan.delta_scatter_shards = checked
+    def record(kernel: str, shape: str, span_ms: float,
+               compare: Callable[[], int]) -> None:
+        t = time.perf_counter()
+        try:
+            err: Any = compare()
+        except Exception as e:  # recorded, and required 0 by the caller
+            err = f"{type(e).__name__}: {e}"
+        rows.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
+                     "span_ms": span_ms,
+                     "thread": threading.current_thread().name, "t": t})
+
+    def k1(block, pool_target, now_s, stale_s, *, num_pools, num_slots):
+        got, span_ms = timed(lambda: real_k1(
+            block, pool_target, now_s, stale_s, num_pools=num_pools,
+            num_slots=num_slots))
+        record("fleet_tick", f"nb{block.shape[1]}_pb{num_pools}", span_ms,
+               lambda: max_abs_err(got, fleet_tick_reference(
+                   block, pool_target, now_s, stale_s, num_pools=num_pools,
+                   num_slots=num_slots)))
+        return got
+
+    def k2(blocks, idx, vals, nb, *, shard_ids=None):
+        want = [block.clone() for block in blocks]
+        _, span_ms = timed(lambda: real_k2(blocks, idx, vals, nb,
+                                           shard_ids=shard_ids))
+
+        def compare() -> int:
+            delta_scatter_shards_reference(want, idx, vals, nb,
+                                           shard_ids=shard_ids)
+            return max(max_abs_err({"block": got}, {"block": w})
+                       for got, w in zip(blocks, want))
+
+        record("delta_scatter", f"nb{nb}_kb{idx.shape[0]}_shards{len(blocks)}",
+               span_ms, compare)
+
+    # the planner calls both under its dispatch lock: one at a time
+    plan.fleet_tick_block, plan.delta_scatter_shards = k1, k2
     try:
-        yield held
+        yield rows
     finally:
-        plan.delta_scatter_shards = real
+        plan.fleet_tick_block, plan.delta_scatter_shards = real_k1, real_k2
+
+
+def require_plain(rows: List[dict], where: str) -> None:
+    """Every launch :func:`held_to_plain` recorded equal to its plain
+    version."""
+    bad = [r for r in rows if r["max_abs_err"] != 0]
+    require(not bad, f"{where}: launches that differ from their plain "
+                     f"versions: {bad[:3]}")
+
+
+def launches_of(rows: List[dict], kernel: str) -> List[dict]:
+    return [r for r in rows if r["kernel"] == kernel]
 
 
 def agent_phase(tmp: str) -> dict:
@@ -2254,12 +2297,14 @@ def agent_phase(tmp: str) -> dict:
             verdict = doctor_of(kube.get_node(AGENT_NODE))
             require(verdict is not None and verdict["ok"] is True,
                     f"the agent's doctor verdict {verdict}")
-            with k1_held_to_plain() as held:
+            with held_to_plain() as held:
                 t0 = time.perf_counter()
                 fleet = FleetController(kube, port=0).scan_once()
                 scan_s = time.perf_counter() - t0
         finally:
             device_base.set_backend(None)
+    require_plain(held, "the fleet scan")
+    held = launches_of(held, "fleet_tick")
     require(held, "the fleet scan launched no K1 to hold to its plain "
                   "version")
     require(AGENT_NODE not in fleet["needs_flip"]
@@ -2296,26 +2341,27 @@ FLIP_TIMEOUT_S = 120
 POLICY_SCANS = 20
 
 
-def policy_pools(kube: Any, nodes: List[dict]) -> List[str]:
+def policy_pools(kube: Any, nodes: List[dict],
+                 name_fmt: str = "pool-{}") -> List[str]:
     """Phase 10 (a)'s cluster: ``nodes`` in ``N_POOLS`` pools by the
     ``POOL_LABEL`` label, whole slices in turn, one TPUCCPolicy each,
     targets taking ``POLICY_TARGETS`` in turn; returns the policies'
-    names. Every pool holds failed nodes, so that every policy reads
-    Degraded and the scans launch no rollout: they are measured
-    alone."""
+    names (``name_fmt`` of the pool's index). Every pool holds failed
+    nodes, so that every policy reads Degraded and the scans launch no
+    rollout: they are measured alone."""
     from tpu_cc_manager_torch import labels as L
 
+    names = [name_fmt.format(pid) for pid in range(N_POOLS)]
     members: List[List[dict]] = [[] for _ in range(N_POOLS)]
     for i, node in enumerate(nodes):
         pid = (i // SLICE_HOSTS) % N_POOLS
-        node["metadata"]["labels"][POOL_LABEL] = f"pool-{pid}"
+        node["metadata"]["labels"][POOL_LABEL] = names[pid]
         kube.add_node(node)
         members[pid].append(node)
     for pid, pool in enumerate(members):
         require(any(n["metadata"]["labels"][L.CC_MODE_STATE_LABEL]
                     == "failed" for n in pool),
-                f"pool-{pid} holds no failed node")
-    names = [f"pool-{pid}" for pid in range(N_POOLS)]
+                f"{names[pid]} holds no failed node")
     for pid, name in enumerate(names):
         kube.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
             "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
@@ -2339,13 +2385,22 @@ def held_scan(fn: Callable[[], Any]) -> Tuple[Any, float, List[dict],
     the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with k1_held_to_plain() as k1, k2_held_to_plain() as k2, \
+    with held_to_plain() as held, \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
+    require_plain(held, "the scan")
+    return (out, host_s, launches_of(held, "fleet_tick"),
+            launches_of(held, "delta_scatter"), kernel_device_time(prof))
+
+
+def kernel_device_time(prof: Any) -> Any:
+    """The device time and count of the scans' kernels in a finished
+    ``torch.profiler`` run, by kernel name (the plain versions' PyTorch
+    kernels are not counted), or "not measured" when it saw none."""
     kernels: Dict[str, Any] = {}
     for evt in prof.key_averages():
         name = next((k for k in SCAN_KERNEL_NAMES if k in evt.key), None)
@@ -2354,28 +2409,33 @@ def held_scan(fn: Callable[[], Any]) -> Tuple[Any, float, List[dict],
             continue
         kernels[f"{name}_ms"] = kernels.get(f"{name}_ms", 0.0) + total_us / 1e3
         kernels[f"{name}_count"] = kernels.get(f"{name}_count", 0) + evt.count
-    device = {"kernel_ms": sum(v for k, v in kernels.items()
-                               if k.endswith("_ms")), **kernels} \
+    return {"kernel_ms": sum(v for k, v in kernels.items()
+                             if k.endswith("_ms")), **kernels} \
         if kernels else "not measured"
-    return out, host_s, k1, k2, device
 
 
-def check_policy_statuses(report: dict, ctrl: Any, kube: Any,
-                          names: List[str]) -> None:
+def check_policy_statuses(report: dict, encoding: Any, kube: Any,
+                          names: List[str],
+                          members: Optional[Dict[str, List[dict]]] = None,
+                          clock: Optional[Tuple[int, int]] = None) -> None:
     """Every policy's status counts against the host evaluation of the
-    rows the controller's scratch encoding holds, the pools as the
-    cluster has them now."""
+    rows ``encoding`` holds (the controller's scratch encoding, or one
+    synced over the policies' nodes), the pools as the cluster has them
+    now (``members``, pool -> nodes, where the caller keeps them), at
+    ``clock`` (now and the staleness threshold, seconds; this host's if
+    None)."""
     from tpu_cc_manager_torch import labels as L
     from tpu_cc_manager_torch import plan
 
-    now_s, stale_s = int(time.time()), int(plan._stale_after_s())
+    now_s, stale_s = clock or (int(time.time()), int(plan._stale_after_s()))
     pools = []
     for name in names:
         spec = kube.get_cluster_custom(L.POLICY_GROUP, L.POLICY_VERSION,
                                        L.POLICY_PLURAL, name)["spec"]
         pools.append((name, spec["mode"],
-                      kube.list_nodes(spec["nodeSelector"])))
-    want = pool_expectation(ctrl._pool_scratch, pools, now_s, stale_s)
+                      kube.list_nodes(spec["nodeSelector"]) if members is None
+                      else members[name]))
+    want = pool_expectation(encoding, pools, now_s, stale_s)
     for name in names:
         st = report["policies"][name]
         got = {k: st[k] for k in ("nodes", "converged", "failed",
@@ -2390,12 +2450,45 @@ def check_policy_statuses(report: dict, ctrl: Any, kube: Any,
             f"the scan rolled {report.get('rolling')}")
 
 
+def pick_churn(nodes: List[dict], rng: np.random.Generator,
+               count: int) -> List[Tuple[dict, str]]:
+    """``count`` of ``nodes`` that are not failed, each with the state
+    it flips to (on to off, anything else to on): the pools' failed
+    nodes stay failed."""
+    from tpu_cc_manager_torch import labels as L
+
+    live = [n for n in nodes
+            if n["metadata"]["labels"][L.CC_MODE_STATE_LABEL] != "failed"]
+    out = []
+    for i in rng.choice(len(live), count, replace=False):
+        now = live[i]["metadata"]["labels"][L.CC_MODE_STATE_LABEL]
+        out.append((live[i], "off" if now == "on" else "on"))
+    return out
+
+
+def churn_states(kube: Any, rng: np.random.Generator, count: int) -> None:
+    """:func:`pick_churn` over the cluster's nodes, written."""
+    from tpu_cc_manager_torch import labels as L
+
+    for node, state in pick_churn(kube.list_nodes(), rng, count):
+        kube.set_node_labels(node["metadata"]["name"],
+                             {L.CC_MODE_STATE_LABEL: state})
+
+
+#: a policy status's counts that do not depend on the clock (a node's
+#: eligibility does, through its evidence's age)
+POLICY_COUNTS = ("nodes", "converged", "failed", "divergent", "skew")
+
+
+def policy_counts(status: dict) -> Dict[str, int]:
+    return {k: status[k] for k in POLICY_COUNTS}
+
+
 def policy_scan(kube: Any, names: List[str]) -> dict:
     """Phase 10 (a): ``PolicyController.scan_once`` over the 100,000
     nodes, cold (the session rebuilds) and after ``POLICY_CHURN`` of the
     nodes change state; every K1 and K2 launch held to its plain
     version, every status held to the host evaluation."""
-    from tpu_cc_manager_torch import labels as L
     from tpu_cc_manager_torch.policy import PolicyController
 
     ctrl = PolicyController(kube, port=0)
@@ -2405,24 +2498,15 @@ def policy_scan(kube: Any, names: List[str]) -> dict:
     stats = ctrl._pool_scratch.session.stats
     for scan in ("cold", "churn"):
         if scan == "churn":
-            # the changed nodes keep the pools' failed nodes failed
-            live = [n for n in kube.list_nodes()
-                    if n["metadata"]["labels"][L.CC_MODE_STATE_LABEL]
-                    != "failed"]
-            picked = rng.choice(len(live), int(FLEET_NODES * POLICY_CHURN),
-                                replace=False)
-            for i in picked:
-                meta = live[i]["metadata"]
-                now = meta["labels"][L.CC_MODE_STATE_LABEL]
-                kube.set_node_labels(meta["name"], {
-                    L.CC_MODE_STATE_LABEL: "off" if now == "on" else "on"})
+            churn_states(kube, rng, int(FLEET_NODES * POLICY_CHURN))
         incr = stats["incr_ticks"]
         report, host_s, k1, k2, device = held_scan(ctrl.scan_once)
         # the cold scan rebuilds the session through K1; an incremental
         # scan writes its rows with K2 and reads its outputs from the
         # host mirror
         require(scan == "churn" or k1, "the cold policy scan launched no K1")
-        check_policy_statuses(report, ctrl, kube, names)
+        check_policy_statuses(report, ctrl._pool_scratch.encoding, kube,
+                              names)
         want_k2 = stats["incr_ticks"] - incr
         require(scan == "cold" or want_k2 == 1,
                 f"the churn scan took {want_k2} incremental ticks")
@@ -2433,6 +2517,9 @@ def policy_scan(kube: Any, names: List[str]) -> dict:
                      "k1": k1, "k2": k2,
                      "launches": {"fleet_tick": len(k1),
                                   "delta_scatter": len(k2)}}
+        if scan == "cold":
+            out[scan]["statuses"] = {name: policy_counts(
+                report["policies"][name]) for name in names}
     out["churned_nodes"] = int(FLEET_NODES * POLICY_CHURN)
     out["incr_ticks"] = stats["incr_ticks"]
     return out
@@ -2475,12 +2562,14 @@ def rollout_preflight(kube: Any) -> dict:
 
 
 @contextlib.contextmanager
-def flip_agent(tmp: str):
+def flip_agent(tmp: str, kube: Any = None, pool: Optional[str] = None):
     """Phase 10 (c)'s node: phase 9's node with its 8 GPU pods beside the
-    untouched node, ``CCManagerAgent`` over ``CudaBackend`` on every card
-    with a node drain, running until the block ends; its first reconcile
-    flips the cards to ``devtools``. Yields ``(kube, agent, backend,
-    paths, spans)``."""
+    untouched node (in ``kube``, a new ``FakeKube`` if None; with
+    ``pool``, the agent's node is in that pool by ``POOL_LABEL``),
+    ``CCManagerAgent`` over ``CudaBackend`` on every card with a node
+    drain, running until the block ends; its first reconcile flips the
+    cards to ``devtools``. Yields ``(kube, agent, backend, paths,
+    spans)``."""
     from tpu_cc_manager_torch import labels as L
     from tpu_cc_manager_torch.agent import CCManagerAgent
     from tpu_cc_manager_torch.config import AgentConfig
@@ -2490,10 +2579,12 @@ def flip_agent(tmp: str):
 
     backend = CudaBackend(state_dir=os.path.join(tmp, "flip-state"))
     paths = [c.path for c in backend.find_tpus()[0]]
-    kube = FakeKube()
+    kube = FakeKube() if kube is None else kube
     agent_nodes(kube, "devtools")
     for name in AGENT_NODES:
         kube.set_node_labels(name, {HOSTNAME_LABEL: name})
+    if pool is not None:
+        kube.set_node_labels(AGENT_NODE, {POOL_LABEL: pool})
     spans: Dict[str, List[float]] = {}
     tracer = Tracer()
     tracer.add_sink(lambda s: spans.setdefault(s.name, []).append(s.dur_s))
@@ -2564,7 +2655,7 @@ def controller_flips(tmp: str) -> Tuple[dict, dict]:
 
     selector = f"{HOSTNAME_LABEL}={AGENT_NODE}"
     with flip_agent(tmp) as (kube, agent, backend, paths, spans), \
-            k1_held_to_plain() as k1, k2_held_to_plain() as k2:
+            held_to_plain() as held:
         keep = pods_on(kube, OTHER_NODE)
         other_labels = kube.get_node(OTHER_NODE)["metadata"]["labels"]
 
@@ -2586,9 +2677,10 @@ def controller_flips(tmp: str) -> Tuple[dict, dict]:
                         probes, gen, backend)
         rollout = {"mode": "on", "wall_s": wall_s, "group_s": groups,
                    "probe_launches": k5, "cards": len(paths),
-                   "k1_held": list(k1),
+                   "k1_held": launches_of(held, "fleet_tick"),
                    "spans_s": {k: sum(v) for k, v in spans.items()}}
         finding(phase="rollout_flip", **rollout)
+        rollout_launches = len(held)
 
         # the policy, through the controller's own rollout
         gpu_pods(kube, AGENT_NODE, "job-policy")
@@ -2614,11 +2706,15 @@ def controller_flips(tmp: str) -> Tuple[dict, dict]:
                         probes, gen, backend)
         policy = {"mode": "devtools", "wall_s": wall_s, "scans": len(phases),
                   "phases": phases, "probe_launches": k5,
-                  "k1_held": k1[len(rollout["k1_held"]):], "k2_held": list(k2),
+                  "k1_held": launches_of(held[rollout_launches:],
+                                         "fleet_tick"),
+                  "k2_held": launches_of(held[rollout_launches:],
+                                         "delta_scatter"),
                   "cards": len(paths), "incr_ticks":
                       ctrl._pool_scratch.session.stats["incr_ticks"],
                   "spans_s": {k: sum(v) for k, v in spans.items()}}
         finding(phase="policy_flip", **policy)
+    require_plain(held, "the rollout and the policy's flips")
     return rollout, policy
 
 
@@ -2677,10 +2773,12 @@ def controller_entry_points(tmp: str) -> dict:
     return out
 
 
-def controller_path() -> Dict[str, int]:
+def controller_path() -> Tuple[Dict[str, int], Dict[str, dict]]:
     """Phase 10 with its launch counts set to 0 just before it and read
     just after it: K1 at least once, K2 exactly once per card per
-    incremental scan, K5 once per card per flip."""
+    incremental scan, K5 once per card per flip. Returns the launches and
+    the cold scan's policy counts (:func:`policy_counts`), by pool
+    index."""
     from tpu_cc_manager_torch import plan
     from tpu_cc_manager_torch.device import base as device_base
     from tpu_cc_manager_torch.k8s.fake import FakeKube
@@ -2724,6 +2822,731 @@ def controller_path() -> Dict[str, int]:
     require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
     require(set(os.listdir(ROOT)) == cwd_before,
             "the controllers wrote into the repository root")
+    return launches, {str(pid): scan["cold"]["statuses"][name]
+                      for pid, name in enumerate(names)}
+
+
+# ------------------------- phase 11: the sharded control plane
+
+#: phase 11 (a): consistent-hash controller shards and the hosts that
+#: contest their leases
+SHARDS, SHARD_HOSTS = 4, 2
+#: phase 11 (a)'s pool names: phase 10's (``pool-0`` ... ``pool-7``) put
+#: none of the 8 on one of the 4 ring members; these put two on each
+SHARD_POOL_FMT = "pool-{:02d}"
+#: phase 11 (a)'s policy scan interval, the fleet controllers' default:
+#: at the default 1 s each policy controller re-lists and re-encodes its
+#: 25,000 nodes back to back (4-5 s a scan with all eight controllers in
+#: one interpreter), and the shared informer took 138 s to hand 1,000
+#: writes to every shard (PERF.md §6)
+SHARD_POLICY_INTERVAL_S = 5.0
+#: phase 11 (c): two regions of this many nodes in this many pools each,
+#: each region's pools over this many controller shards
+REGIONS = ("region-a", "region-b")
+REGION_NODES = 10_000
+REGION_POOLS = 4
+REGION_SHARDS = 2
+#: the window region-b's posture write waits, unless an evacuation
+#: collapses it
+REGION_B_WINDOW_S = 60.0
+#: the converged checks of the zero-read pin
+ZERO_READ_CHECKS = 5
+#: seconds phase 11 waits for any one condition
+SHARD_WAIT_S = 300
+#: the node events phase 11's fake API servers retain, per node: a
+#: ``FakeKube`` watch stream that lags more than its history behind the
+#: writes skips the events compacted under it, with no 410 (ROADMAP
+#: Queue 3), and phase 11's bursts (a region's posture write, its
+#: cordon) write every node at once while the informers' subscribers
+#: hold them back
+WATCH_HISTORY_PER_NODE = 2
+
+
+def scan_count(ctrl: Any) -> int:
+    """The scans a fleet or policy controller has finished: its
+    scan-duration histogram's count."""
+    return ctrl.metrics.scan_duration.count
+
+
+def scanned(ctrls: List[Any], more: Optional[Dict[int, int]] = None) -> bool:
+    """Has every controller in ``ctrls`` finished as many scans as
+    ``more`` asks of it (controller id -> scans; one where absent)?"""
+    more = more or {}
+    return all(scan_count(c) >= more.get(id(c), 1) for c in ctrls)
+
+
+def after_now(ctrls: List[Any]) -> Dict[int, int]:
+    """For :func:`scanned`: two scans past each controller's count now,
+    the second of which started after now."""
+    return {id(c): scan_count(c) + 2 for c in ctrls}
+
+
+def scan_marks(ctrls: Dict[str, Any]) -> Dict[str, dict]:
+    """Each controller's scan-duration histogram now (label ->
+    ``snapshot()``), to open a window for :func:`scan_window`."""
+    return {label: c.metrics.scan_duration.snapshot()
+            for label, c in ctrls.items()}
+
+
+def scan_window(ctrls: Dict[str, Any],
+                since: Dict[str, dict]) -> Dict[str, dict]:
+    """The scans each controller (label -> controller) finished since
+    ``since`` (:func:`scan_marks`; from its start where absent) and
+    their mean host seconds, from its own scan-duration histogram."""
+    out = {}
+    for label, now in scan_marks(ctrls).items():
+        was = since.get(label, {"count": 0, "sum": 0.0})
+        n = now["count"] - was["count"]
+        if n:
+            out[label] = {"scans": n,
+                          "mean_s": (now["sum"] - was["sum"]) / n}
+    return out
+
+
+def shard_controllers(bundles: List[Any]) -> Dict[str, Any]:
+    """The fleet and policy controllers of ``bundles``, by
+    ``<shard>/<kind>``."""
+    return {f"{b.shard_id}/{kind}": c for b in bundles
+            for kind, c in (("fleet", b.fleet), ("policy", b.policy))
+            if c is not None}
+
+
+def shard_sessions(bundles: List[Any]) -> List[Dict[str, int]]:
+    """The ``stats`` of the planner sessions of ``bundles``' controllers:
+    each fleet controller's ``TickSession`` and each policy controller's
+    pool-scan session."""
+    out = []
+    for b in bundles:
+        out.append(b.fleet._tick_session.stats)
+        if b.policy is not None:
+            out.append(b.policy._pool_scratch.session.stats)
+    return out
+
+
+def merged_fleet_report(reports: List[dict]) -> dict:
+    """The partition-scoped fleet reports of every shard as one report
+    (counts summed, node and slice lists joined), in the shape
+    :func:`check_fleet_report` reads."""
+    out: Dict[str, Any] = {"nodes": 0, "mode_counts": {},
+                           "doctor": {"unreported": [], "failing": []}}
+    keys = ("needs_flip", "failed", "flipping", "stale_evidence",
+            "incoherent_slices", "half_flipped_slices")
+    for key in keys:
+        out[key] = []
+    for report in reports:
+        out["nodes"] += report["nodes"]
+        for mode, n in report["mode_counts"].items():
+            out["mode_counts"][mode] = out["mode_counts"].get(mode, 0) + n
+        for key in keys:
+            out[key] += report[key]
+        for key in ("unreported", "failing"):
+            out["doctor"][key] += report["doctor"].get(key, [])
+    return out
+
+
+def rows_wrong(report: dict, truth: Any) -> int:
+    """The nodes a shard's fleet report and the phase's own encoding of
+    its partition (``truth``) disagree on: divergent in one and not in
+    the other."""
+    snap, rows = truth.snapshot(), truth.row_map()
+    want = {n for n, i in rows.items()
+            if snap.columns["desired"][i] != snap.columns["observed"][i]}
+    return len(want ^ set(report["needs_flip"]))
+
+
+def check_shard_reports(mgr: Any, kube: Any, truth: Dict[str, Any],
+                        members: Dict[str, List[dict]]) -> dict:
+    """Phase 11 (a)'s checks of the live shards: each shard's fleet
+    report and each of its policies' statuses against the host
+    evaluation of its partition (``truth``, shard -> the phase's own
+    encoding of the partition's nodes; ``members``, pool -> the phase's
+    own copy of its nodes), at the clock the shard's session froze (a
+    session moves its staleness verdicts at full-tick cadence); the
+    reports summed cover the fleet; the merged ``/fleet/metrics``
+    fetched from the manager's port. The phase keeps its own copy of the
+    cluster: a ``FakeKube`` list of 100,000 nodes holds the fake's lock
+    for seconds, and every shard lease's renewal waits behind it."""
+    import urllib.request
+
+    from tpu_cc_manager_torch import fleetobs
+    from tpu_cc_manager_torch.obs import validate_exposition
+
+    bundles = mgr.bundles()
+    for b in bundles:
+        owned = sorted(b.pools)
+        enc = truth[b.shard_id]
+        sess = b.fleet._tick_session
+        try:
+            check_fleet_report(b.fleet.last_report, enc.snapshot(),
+                               sess._now_s, sess._stale_s)
+        except SmokeError as e:
+            raise SmokeError(
+                f"{b.shard_id}: {e}; {rows_wrong(b.fleet.last_report, enc)} "
+                "nodes divergent in one of the report and the truth only"
+            ) from e
+        report = b.policy.last_report
+        require(sorted(report["policies"]) == owned,
+                f"{b.shard_id}'s policies {sorted(report['policies'])} != "
+                f"its pools {owned}")
+        sess = b.policy._pool_scratch.session
+        check_policy_statuses(report, enc, kube, owned, members,
+                              (sess._now_s, sess._stale_s))
+    merged = merged_fleet_report([b.fleet.last_report for b in bundles])
+    require(merged["nodes"] == FLEET_NODES,
+            f"the shards' reports hold {merged['nodes']} nodes")
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{mgr.port}/fleet/metrics", timeout=60) as r:
+        text = r.read().decode()
+    problems = validate_exposition(text)
+    require(problems == [], f"merged /fleet/metrics: {problems[:3]}")
+    families, _ = fleetobs.parse_exposition(text)
+
+    def gauge(name: str, labels: str = "") -> float:
+        return families[name]["series"][labels]
+
+    want = {"tpu_cc_fleet_nodes": merged["nodes"],
+            "tpu_cc_fleet_needs_flip": len(merged["needs_flip"]),
+            "tpu_cc_fleet_failed_nodes": len(merged["failed"]),
+            "tpu_cc_shard_partitions_covered": SHARDS}
+    for name, value in want.items():
+        require(gauge(name) == value,
+                f"/fleet/metrics {name} {gauge(name)} != {value}")
+    for mode, n in merged["mode_counts"].items():
+        got = gauge("tpu_cc_fleet_nodes_by_mode", f'mode="{mode}"')
+        require(got == n, f"/fleet/metrics nodes_by_mode {mode} {got} != {n}")
+    return {"nodes": merged["nodes"], "needs_flip": len(merged["needs_flip"]),
+            "failed": len(merged["failed"]),
+            "mode_counts": merged["mode_counts"], "metrics_bytes": len(text)}
+
+
+def slo_pass(observer: Any, sources: List[Any]) -> dict:
+    """One ``observe`` pass of phase 11 (b): every source of this pass
+    scraped and valid, the merge valid and holding the fleet, no
+    objective that can never fire. The sources are the manager's merged
+    ``/fleet/metrics`` and each shard's own exposition, so that the
+    observer's merge counts every node twice."""
+    before = observer.summary()["scrapes"]
+    t0 = time.perf_counter()
+    merged = observer.observe(sources)
+    seconds = time.perf_counter() - t0
+    summary = observer.summary()
+    scrapes = {k: v - before[k] for k, v in summary["scrapes"].items()}
+    require(scrapes == {"ok": len(sources), "invalid": 0, "unreachable": 0},
+            f"the pass's scrapes {scrapes}, of {len(sources)} sources")
+    nodes = merged.get("tpu_cc_fleet_nodes", {}).get("series", {}).get("")
+    require(nodes == 2 * FLEET_NODES,
+            f"the observer's merge holds {nodes} nodes, not the manager's "
+            f"and the shards' {FLEET_NODES} each")
+    require(summary["misconfigured"] == {},
+            f"SLO objectives that can never fire: {summary['misconfigured']}")
+    require(observer.aggregation_problems == [],
+            f"merged exposition: {observer.aggregation_problems[:3]}")
+    return {"scrape_merge_s": seconds, "sources": len(sources),
+            "scrapes": scrapes, "merged_nodes": nodes,
+            "objectives": len(summary["objectives"]),
+            "alerts": len(summary["alerts"])}
+
+
+def lease_holders(kube: Any, count: int) -> List[Tuple[str, int]]:
+    """(holder, transitions) of the first ``count`` shard leases."""
+    from tpu_cc_manager_torch.shard import SHARD_LEASE_FMT
+
+    out = []
+    for k in range(count):
+        spec = kube.get_lease("tpu-system", SHARD_LEASE_FMT.format(
+            index=k))["spec"]
+        out.append((spec.get("holderIdentity"),
+                    int(spec.get("leaseTransitions", 0))))
+    return out
+
+
+def started_since(before: set) -> List[str]:
+    """The threads started since ``before`` was taken that are still
+    alive, by name, but for the process's one asyncio bridge
+    (``k8s/aio_bridge.py``: its loop and executor threads live as long
+    as the process)."""
+    return sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.name != "cc-aio-loop"
+                  and not t.name.startswith("asyncio_"))
+
+
+def wake_watches(kube: Any, node: str, policy: bool) -> None:
+    """After a stop: a stopped controller's watch threads (the
+    informer's node watch, a policy controller's watch of its custom
+    resources) stay blocked in their watch, holding their controllers,
+    until its next event or its timeout (``WATCH_TIMEOUT_S``, 300 s).
+    One event on each watched collection (``node``, a new policy) ends
+    them."""
+    from tpu_cc_manager_torch import labels as L
+
+    kube.set_node_labels(node, {"tpu-cc-smoke/stopped": "true"})
+    if policy:
+        kube.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+            "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+            "kind": L.POLICY_KIND, "metadata": {"name": "smoke-stopped"},
+            "spec": {"mode": "off", "nodeSelector": "tpu-cc-smoke/none"}})
+
+
+def sharded_plane(kube: Any, nodes: List[dict], names: List[str],
+                  phase10: Dict[str, dict], sessions: List[Dict[str, int]],
+                  out: Dict[str, Any]) -> dict:
+    """Phase 11 (a) and (b): ``ShardManager`` over the 100,000 nodes in
+    8 TPUCCPolicy pools, 4 shards on 2 hosts with the policy plane, the
+    reference's lease settings; cold, after ``POLICY_CHURN`` of the
+    nodes change, and after one host dies; the SLO observer over the
+    shards' expositions around the churn. Fills ``out``, the
+    ``shard_scan`` finding, as it goes, and ``sessions`` with the stats
+    of every shard controller's planner session; returns the
+    ``slo_observe`` finding."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.fleetobs import (
+        FleetObserver, default_slo_path, load_slo)
+    from tpu_cc_manager_torch.shard import ShardManager
+
+    out.update({"nodes": FLEET_NODES, "pools": N_POOLS, "shards": SHARDS,
+                "hosts": SHARD_HOSTS,
+                "policy_interval_s": SHARD_POLICY_INTERVAL_S})
+    torch.cuda.synchronize()
+    out["memory_before"] = torch.cuda.memory_allocated(DEVICE)
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    threads_before = set(threading.enumerate())
+    mgr = ShardManager(lambda: kube, shards=SHARDS, hosts=SHARD_HOSTS,
+                       policy=True, pools=names, pool_label=POOL_LABEL,
+                       policy_interval_s=SHARD_POLICY_INTERVAL_S)
+    # the host evaluation's inputs, encoded before the shards compete
+    # with this thread for the interpreter: each shard's partition
+    members: Dict[str, List[dict]] = {}
+    for n in nodes:
+        members.setdefault(n["metadata"]["labels"][POOL_LABEL], []).append(n)
+    truth: Dict[str, Any] = {}
+    for sid in mgr.shard_ids:
+        truth[sid] = plan.FleetEncoding()
+        truth[sid].sync([n for pool in mgr.pools_of(sid)
+                         for n in members[pool]])
+    churn = pick_churn(nodes, np.random.default_rng(11),
+                       int(FLEET_NODES * POLICY_CHURN))
+    t0 = time.perf_counter()
+    try:
+        mgr.start()
+        out["start_s"] = time.perf_counter() - t0
+        require(mgr.wait_covered(timeout_s=SHARD_WAIT_S),
+                f"coverage {mgr.coverage()}")
+        out["covered_s"] = time.perf_counter() - t0
+        bundles = mgr.bundles()
+        sessions += shard_sessions(bundles)
+        parts = {sid: mgr.pools_of(sid) for sid in mgr.shard_ids}
+        require(sorted(p for ps in parts.values() for p in ps) == sorted(names)
+                and all(parts.values()),
+                f"the shards' pools {parts} do not partition {names}")
+        require({b.shard_id: sorted(b.pools) for b in bundles} == parts,
+                f"the live shards' pools differ from the ring's {parts}")
+        out["partition"] = parts
+        out["coverage"] = mgr.coverage()
+        ctrls = shard_controllers(bundles)
+        wait_for(lambda: scanned(list(ctrls.values())), SHARD_WAIT_S,
+                 "every shard's first fleet and policy scans")
+        out["scanned_s"] = time.perf_counter() - t0
+        out["first_check"] = check_shard_reports(mgr, kube, truth, members)
+        statuses = {name: st for b in bundles
+                    for name, st in b.policy.last_report["policies"].items()}
+        for pid, name in enumerate(names):
+            require(policy_counts(statuses[name]) == phase10[str(pid)],
+                    f"{name}: {policy_counts(statuses[name])} != phase 10's "
+                    f"{phase10[str(pid)]}")
+        require(lease_holders(kube, SHARDS) == [
+            (f"host-{k % SHARD_HOSTS}", 0) for k in range(SHARDS)],
+            f"shard leases {lease_holders(kube, SHARDS)} before any failure")
+
+        # (b) the SLO observer over the manager's merged view and every
+        # shard's own exposition, before and after the churn
+        observer = FleetObserver(load_slo(default_slo_path()), name="smoke")
+        sources = [f"http://127.0.0.1:{mgr.port}/fleet/metrics"] + [
+            b.metrics_text for b in bundles]
+        slo = {"before_churn": slo_pass(observer, sources)}
+
+        # 1 % of the nodes change; each shard session's next scans write
+        # their rows with K2
+        t_churn = time.perf_counter()
+        at_churn = scan_marks(ctrls)
+        for node, state in churn:
+            meta = node["metadata"]
+            kube.set_node_labels(meta["name"], {L.CC_MODE_STATE_LABEL: state})
+            meta["labels"][L.CC_MODE_STATE_LABEL] = state
+            truth[mgr.shard_of_pool(meta["labels"][POOL_LABEL])].apply(node)
+        last = churn[-1][0]["metadata"]["name"]
+        wait_for(lambda: mgr.informer.get_node(last)["metadata"]["labels"]
+                 .get(L.CC_MODE_STATE_LABEL) == churn[-1][1], SHARD_WAIT_S,
+                 "the informer's view of the churn")
+        fleets = [b.fleet for b in bundles]
+        # a fleet controller fed by the informer reconciles its encoding
+        # with a fresh list at least every sync_every + 1 scans: after
+        # the scan in flight now, at most sync_every - (scans since its
+        # last reconcile) trust the feed (read before its count)
+        reconciled = {id(c): c.sync_every - c._scans_since_sync
+                      + scan_count(c) + 2 for c in fleets}
+        seen = after_now(list(ctrls.values()))
+        wait_for(lambda: scanned(list(ctrls.values()), seen), SHARD_WAIT_S,
+                 "every shard's scans after the churn")
+        out["churn_scanned_s"] = time.perf_counter() - t_churn
+        # a fleet scan that listed before the churn and reconciled its
+        # encoding after the informer fed it the churn writes the older
+        # state back, and the scans after it trust the feed until the
+        # next reconciling scan (both packages; ROADMAP Queue 3): count
+        # the rows each shard's report has wrong now, then hold every
+        # report to the truth after a reconciling scan
+        out["churn_rows_wrong"] = {
+            b.shard_id: rows_wrong(b.fleet.last_report, truth[b.shard_id])
+            for b in bundles}
+        wait_for(lambda: scanned(fleets, reconciled), SHARD_WAIT_S,
+                 "every shard's reconciling fleet scan after the churn")
+        out["churn_check"] = check_shard_reports(mgr, kube, truth, members)
+        out["churn_s"] = time.perf_counter() - t_churn
+        out["churned_nodes"] = len(churn)
+        slo["after_churn"] = slo_pass(observer, sources)
+        # the sources hold the shards' bound methods, and through them
+        # the controllers and their device sessions
+        del observer, sources
+        out["scan_s"] = {"cold": scan_window(ctrls, {}),
+                         "churn": scan_window(ctrls, at_churn)}
+
+        # host-0 dies without releasing its leases; host-1 takes its
+        # shards after a lease duration of staleness
+        t_kill = time.perf_counter()
+        killed = mgr.kill_host(0)
+        orphaned = killed["orphaned_shards"]
+        require(orphaned == [f"shard-{k}" for k in range(SHARDS)
+                             if k % SHARD_HOSTS == 0],
+                f"host-0 held {orphaned}")
+        require(mgr.wait_failovers(timeout_s=SHARD_WAIT_S),
+                "the orphaned shards were not re-acquired")
+        out["failover_s"] = time.perf_counter() - t_kill
+        (failover,) = mgr.stats()["failovers"]
+        # stamped from the end of crash(), which joins the dead host's
+        # scan threads first, to the last orphaned shard's re-acquiry
+        out["handoff_s"] = failover["handoff_s"]
+        require(set(mgr.coverage().values()) == {"host-1"},
+                f"coverage after the failover {mgr.coverage()}")
+        fresh = [b for b in mgr.bundles() if b.shard_id in orphaned]
+        require(sorted(b.shard_id for b in fresh) == orphaned,
+                f"host-1 runs {[b.shard_id for b in mgr.bundles()]}")
+        sessions += shard_sessions(fresh)
+        fresh_ctrls = {f"{label}/failover": c for label, c
+                       in shard_controllers(fresh).items()}
+        wait_for(lambda: scanned(list(fresh_ctrls.values())), SHARD_WAIT_S,
+                 "the re-acquired shards' first scans")
+        require(sum(b.fleet.last_report["nodes"] for b in mgr.bundles())
+                == FLEET_NODES, "the shards' scans after the failover do "
+                                "not cover the fleet")
+        out["scan_s"]["failover"] = scan_window(fresh_ctrls, {})
+        # each orphaned lease changed hands once; no other lease did
+        leases = lease_holders(kube, SHARDS)
+        out["leases"] = leases
+        out["unplanned_failovers"] = (sum(t for _, t in leases)
+                                      - len(orphaned))
+        require(leases == [("host-1", int(f"shard-{k}" in orphaned))
+                           for k in range(SHARDS)],
+                f"shard leases after the failover {leases}")
+        out["orphaned"] = orphaned
+        out["memory_peak"] = torch.cuda.max_memory_allocated(DEVICE)
+        out["killed_at"] = t_kill
+        del bundles, fresh, ctrls, fleets, fresh_ctrls
+    finally:
+        mgr.stop()
+    del mgr
+    torch.cuda.synchronize()
+    out["memory_after_stop"] = torch.cuda.memory_allocated(DEVICE)
+    out["threads_after_stop"] = started_since(threads_before)
+    wake_watches(kube, nodes[0]["metadata"]["name"], policy=True)
+    wait_for(lambda: not started_since(threads_before), 60,
+             "the manager's threads to end")
+    gc.collect()
+    torch.cuda.synchronize()
+    out["memory_after"] = torch.cuda.memory_allocated(DEVICE)
+    require(out["memory_after"] <= out["memory_before"],
+            f"device memory {out['memory_before']} -> {out['memory_after']} "
+            "bytes after the manager and its threads stopped")
+    return slo
+
+
+def region_kube(region: str, seed: int) -> Any:
+    """One region's API server: ``REGION_NODES`` of phase 3's seeded
+    nodes in ``REGION_POOLS`` pools of whole slices, desired ``off``."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+
+    kube = FakeKube(watch_history_limit=WATCH_HISTORY_PER_NODE * REGION_NODES)
+    for i, node in enumerate(make_nodes(REGION_NODES, seed=seed)):
+        labels = node["metadata"]["labels"]
+        labels[POOL_LABEL] = f"{region}-p{(i // SLICE_HOSTS) % REGION_POOLS}"
+        labels[L.CC_MODE_LABEL] = "off"
+        kube.add_node(node)
+    return kube
+
+
+def pool_node_names(kube: Any, pools: List[str]) -> List[str]:
+    return sorted(n["metadata"]["name"] for n in kube.list_nodes()
+                  if n["metadata"]["labels"].get(POOL_LABEL) in pools)
+
+
+def all_labelled(kube: Any, names: List[str], key: str, value: str) -> bool:
+    return all(kube.peek_node_label(n, key) == value for n in names)
+
+
+def converge_states(kube: Any, names: List[str], mode: str) -> int:
+    """The agents' part, for the nodes no agent runs on: each node's
+    state label written to ``mode``; returns the writes."""
+    from tpu_cc_manager_torch import labels as L
+
+    writes = 0
+    for name in names:
+        if kube.peek_node_label(name, L.CC_MODE_STATE_LABEL) != mode:
+            kube.set_node_labels(name, {L.CC_MODE_STATE_LABEL: mode})
+            writes += 1
+    return writes
+
+
+def federation(tmp: str, sessions: List[Dict[str, int]],
+               out: Dict[str, Any]) -> None:
+    """Phase 11 (c): two regions behind one region-affine ring, the
+    agent's node and its 8 pods in region-a; one posture to ``on`` with
+    region-b's window 60 s away flips the agent's cards, region-a
+    converges, region-b still reads ``off``; region-a's evacuation
+    collapses region-b's window and cordons region-a; once the posture
+    holds, the federation's judges read no node from either API
+    server. Fills ``out``, the ``federation`` finding, as it goes, and
+    ``sessions`` with the stats of every region shard's planner
+    session."""
+    from tpu_cc_manager_torch import labels as L
+    from tpu_cc_manager_torch.federation import (
+        FederationManager, FleetPosture, RegionSpec)
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+
+    kubes = {region: region_kube(region, seed=110 + i)
+             for i, region in enumerate(REGIONS)}
+    pools = {region: [f"{region}-p{k}" for k in range(REGION_POOLS)]
+             for region in REGIONS}
+    fed = FederationManager(
+        [RegionSpec(region, (lambda k=kubes[region]: k), pools[region])
+         for region in REGIONS],
+        pool_label=POOL_LABEL, shards_per_region=REGION_SHARDS)
+    out.update({"regions": list(REGIONS), "nodes": REGION_NODES,
+                "pools": REGION_POOLS, "shards": REGION_SHARDS})
+    threads_before = set(threading.enumerate())
+    started = False
+    try:
+        with flip_agent(tmp, kubes["region-a"], pools["region-a"][0]) as (
+                kube_a, agent, backend, paths, spans):
+            names = {region: pool_node_names(kubes[region], pools[region])
+                     for region in REGIONS}
+            require(AGENT_NODE in names["region-a"]
+                    and OTHER_NODE not in names["region-a"],
+                    "the agent's node is not in region-a's pools")
+            keep = pods_on(kube_a, OTHER_NODE)
+            other_labels = kube_a.get_node(OTHER_NODE)["metadata"]["labels"]
+            t0 = time.perf_counter()
+            started = True
+            fed.start()
+            require(fed.wait_covered(timeout_s=SHARD_WAIT_S),
+                    f"the regions' coverage {fed.stats()['managers']}")
+            bundles = [b for m in fed.managers.values() for b in m.bundles()]
+            require(len(bundles) == len(REGIONS) * REGION_SHARDS
+                    and all(b.pools for b in bundles),
+                    f"the regions' shards {[(b.shard_id, sorted(b.pools)) for b in bundles]}")
+            sessions += shard_sessions(bundles)
+            wait_for(lambda: scanned([b.fleet for b in bundles]),
+                     SHARD_WAIT_S, "every region shard's first fleet scan")
+            out["covered_and_scanned_s"] = time.perf_counter() - t0
+            out["partition"] = {b.shard_id: sorted(b.pools) for b in bundles}
+
+            # one posture; region-b's window is 60 s away
+            spans.clear()
+            probes, gen = LAUNCHES["probe_add_one"], backend.runtime_gen
+            t0 = time.perf_counter()
+            fed.apply_posture(FleetPosture(
+                "on", windows={"region-b": REGION_B_WINDOW_S},
+                source="chip_smoke"))
+            out["desired_write_s"] = wait_for(
+                lambda: all_labelled(kube_a, names["region-a"],
+                                     L.CC_MODE_LABEL, "on"),
+                SHARD_WAIT_S, "region-a's desired write")
+            wait_for(lambda: kube_a.peek_node_label(
+                AGENT_NODE, L.CC_MODE_STATE_LABEL) == "on", FLIP_TIMEOUT_S,
+                "the agent's flip to on")
+            out["agent_flip_s"] = time.perf_counter() - t0
+            k5 = check_flip(kube_a, agent, paths, "on", keep, other_labels,
+                            probes, gen, backend)
+            out["probe_launches"] = k5
+            out["cards"] = len(paths)
+            out["spans_s"] = {k: sum(v) for k, v in spans.items()}
+            out["state_writes_a"] = converge_states(
+                kube_a, [n for n in names["region-a"] if n != AGENT_NODE],
+                "on")
+            wait_for(lambda: fed.region_converged("region-a", "on"),
+                     SHARD_WAIT_S, "region-a converged to on")
+            out["region_a_converged_s"] = time.perf_counter() - t0
+            require(all_labelled(kubes["region-b"], names["region-b"],
+                                 L.CC_MODE_LABEL, "off")
+                    and not fed.region_converged("region-b", "on"),
+                    "region-b left off inside its window")
+        # the agent is stopped: the zero-read pin below reads the
+        # federation's own judges
+
+        # region-a evacuates; region-b absorbs now, 60 s window or not
+        t0 = time.perf_counter()
+        entry = fed.evacuate("region-a")
+        require(entry["region"] == "region-a", f"evacuation {entry}")
+        out["absorb_s"] = wait_for(
+            lambda: all_labelled(kubes["region-b"], names["region-b"],
+                                 L.CC_MODE_LABEL, "on"),
+            SHARD_WAIT_S, "region-b's desired write after the evacuation")
+        require(out["absorb_s"] < REGION_B_WINDOW_S,
+                f"region-b waited {out['absorb_s']} s: its window did not "
+                "collapse")
+        wait_for(lambda: fed.region_cordoned("region-a"), SHARD_WAIT_S,
+                 "region-a cordoned")
+        out["state_writes_b"] = converge_states(
+            kubes["region-b"], names["region-b"], "on")
+        wait_for(lambda: fed.region_converged("region-b", "on"),
+                 SHARD_WAIT_S, "region-b converged to on")
+        out["region_b_converged_s"] = time.perf_counter() - t0
+        require(fed.wait_posture(timeout_s=SHARD_WAIT_S),
+                "the posture does not hold")
+        stats = fed.stats()
+        (evac,) = stats["evacuations"]
+        require(stats["evacuated"] == ["region-a"]
+                and evac["cordoned"] == len(names["region-a"])
+                and evac["cordon_s"] is not None,
+                f"the evacuation {evac}")
+        out["cordon_s"] = evac["cordon_s"]
+        out["cordoned"] = evac["cordoned"]
+
+        # the zero-read pin: the converged judges run from the informers
+        reads = {r: kubes[r].node_read_requests for r in REGIONS}
+        for _ in range(ZERO_READ_CHECKS):
+            require(fed.region_converged("region-b", "on")
+                    and fed.region_cordoned("region-a")
+                    and fed.region_converged("region-a", "on"),
+                    "the converged posture stopped holding")
+        moved = {r: kubes[r].node_read_requests - reads[r] for r in REGIONS}
+        require(moved == {r: 0 for r in REGIONS},
+                f"node reads during the converged checks: {moved}")
+        out["node_reads_during_checks"] = moved
+        del bundles
+    finally:
+        if started:
+            fed.stop()
+    for region, kube in kubes.items():
+        wake_watches(kube, names[region][0], policy=False)
+    wait_for(lambda: not started_since(threads_before), 60,
+             "the federation's threads to end")
+
+
+def shard_path(phase10: Dict[str, dict]) -> Dict[str, int]:
+    """Phase 11 with its launch counts set to 0 just before it and read
+    just after it: every K1 and K2 launch of a shard or region thread
+    equal to its plain version, K1 from every shard that held a lease
+    and from every re-acquired shard after the failover, K2 exactly once
+    per row-writing tick of each shard session, K5 once per card per
+    flip. ``phase10`` is phase 10's cold policy counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_cc_manager_torch import plan
+    from tpu_cc_manager_torch.device import base as device_base
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    nodes_before = dev_nodes()
+    cwd_before = set(os.listdir(ROOT))
+    set_mesh(1)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, \
+            no_providers():
+        kube = FakeKube(
+            watch_history_limit=WATCH_HISTORY_PER_NODE * FLEET_NODES)
+        names = policy_pools(kube, make_nodes(FLEET_NODES, seed=100),
+                             SHARD_POOL_FMT)
+        # the phase's own copy of the cluster, kept current by its writes
+        nodes = kube.list_nodes()
+        device_base.set_backend(None)
+        reset_launches()
+        shard: Dict[str, Any] = {}
+        fed: Dict[str, Any] = {}
+        sessions: List[Dict[str, int]] = []
+        try:
+            with held_to_plain() as held:
+                with profile(activities=activities) as prof:
+                    slo = sharded_plane(kube, nodes, names, phase10,
+                                        sessions, shard)
+                    torch.cuda.synchronize()
+                shard["device"] = kernel_device_time(prof)
+                del kube, nodes
+                with profile(activities=activities) as prof:
+                    federation(tmp, sessions, fed)
+                    torch.cuda.synchronize()
+                fed["device"] = kernel_device_time(prof)
+        except Exception:
+            # what the phase had seen when it failed
+            finding(phase="shard_path_failed", shard_scan=shard,
+                    federation=fed)
+            raise
+        finally:
+            device_base.set_backend(None)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    require_plain(held, "the shard and region threads")
+    k1 = launches_of(held, "fleet_tick")
+    k2 = launches_of(held, "delta_scatter")
+    require(len(k1) == launches["fleet_tick"]
+            and len(k2) == launches["delta_scatter"],
+            f"{len(k1)} K1 and {len(k2)} K2 launches held of "
+            f"{launches['fleet_tick']} and {launches['delta_scatter']}")
+    killed_at = shard.pop("killed_at")
+    region_shards = [f"{region}/shard-{k}" for region in REGIONS
+                     for k in range(REGION_SHARDS)]
+    for sid in [f"shard-{k}" for k in range(SHARDS)] + region_shards:
+        threads = (f"shard-fleet-{sid}", f"shard-policy-{sid}")
+        require(any(r["thread"] in threads for r in k1),
+                f"{sid}'s controllers launched no K1")
+    for sid in shard["orphaned"]:
+        require(any(r["thread"].endswith(sid) and r["t"] >= killed_at
+                    for r in k1),
+                f"{sid}'s controllers launched no K1 after the failover")
+    require(all(r["thread"].startswith("shard-") for r in held),
+            f"launches from other threads: "
+            f"{sorted({r['thread'] for r in held})}")
+    writes = sum(st["delta_puts"] // 2 for st in sessions)
+    cards = len(plan._by_device(plan._planner_mesh(DEVICE)))
+    require(launches["delta_scatter"] == cards * writes,
+            f"{launches['delta_scatter']} delta_scatter launches, not one "
+            f"per card per row-writing tick ({cards} x {writes})")
+    require(fed["probe_launches"] == fed["cards"]
+            and launches["probe_add_one"] == 2 * fed["cards"],
+            f"{launches['probe_add_one']} probe_add_one launches, not one "
+            f"per card per flip (2 x {fed['cards']})")
+    require(shard["unplanned_failovers"] == 0,
+            f"{shard['unplanned_failovers']} shard leases changed hands "
+            "that no host's death explains")
+    require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
+    require(set(os.listdir(ROOT)) == cwd_before,
+            "the shards wrote into the repository root")
+    ticks = {k: sum(st[k] for st in sessions)
+             for k in ("rebuilds", "incr_ticks", "full_ticks", "cached_ticks")}
+    for out, regional in ((shard, False), (fed, True)):
+        # a region's shard ids read <region>/shard-<k>
+        rows = [r for r in held if ("/" in r["thread"]) == regional]
+        out["launches"] = {
+            kernel: sum(r["kernel"] == kernel for r in rows)
+            for kernel in ("fleet_tick", "delta_scatter")}
+        out["shapes"] = sorted({f"{r['kernel']}:{r['shape']}" for r in rows})
+    shard["launch_threads"] = {
+        t: sorted({r["kernel"] for r in held if r["thread"] == t})
+        for t in sorted({r["thread"] for r in held if "/" not in r["thread"]})}
+    finding(phase="shard_scan", **shard)
+    finding(phase="slo_observe", **slo)
+    finding(phase="federation", **fed)
+    finding(phase="shard_path", launches=launches, sessions=len(sessions),
+            row_writing_ticks=writes, ticks=ticks, flips=2)
     return launches
 
 
@@ -2850,7 +3673,8 @@ def run() -> None:
     launches["mesh_combine"] = mesh_launches["mesh_combine"]
 
     agent_launches = agent_path()
-    controller_launches = controller_path()
+    controller_launches, phase10 = controller_path()
+    shard_launches = shard_path(phase10)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2862,6 +3686,7 @@ def run() -> None:
             "replaces": replaces, "launches": launches[name],
             "agent_path_launches": agent_launches[name],
             "controller_path_launches": controller_launches[name],
+            "shard_path_launches": shard_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
             "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
             "shape": main["shape"], "ms": main["ms"],

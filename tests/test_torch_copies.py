@@ -26,7 +26,8 @@ COPIES = (
     "obs.py", "tsring.py", "watch.py", "watchdog.py", "profiler.py",
     "evidence.py", "leader.py", "fleet.py", "labels.py", "k8s/batch.py",
     "drain.py", "slice_coord.py", "doctor.py", "agent.py", "webhook.py",
-    "rollout.py", "policy.py",
+    "rollout.py", "policy.py", "fleetobs.py", "shard.py",
+    "federation.py",
 )
 
 #: module -> [(name, reference block, port block)]

@@ -95,7 +95,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
                 "k8s.apiserver", "obs", "tsring", "watchdog", "profiler",
                 "evidence", "leader", "fleet", "kernels.mesh_combine",
                 "k8s.batch", "drain", "slice_coord", "doctor", "agent",
-                "webhook", "rollout", "policy"):
+                "webhook", "rollout", "policy", "fleetobs", "shard",
+                "federation"):
         assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
 
 

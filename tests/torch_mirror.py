@@ -18,7 +18,17 @@ recorded on each side and must be equal:
 - every admission response (``mutate_pod``, ``validate_pod``,
   ``review_response``);
 - every doctor report (``run_doctor``), ordered by node (agents on
-  several nodes run their doctors as their threads run).
+  several nodes run their doctors as their threads run);
+- for every sharded control plane (``ShardManager``), as it stood when
+  the case stopped it (or at the case's end, if it never did): its
+  ``stats()`` (the ring's partition, the live hosts, the coverage, the
+  failover log), the pools each live shard's controllers hold, and the
+  holder and transition count of each shard lease in its ``FakeKube``;
+- for every federation (``FederationManager``), likewise: its
+  ``stats()``, its ``attestation_summary()`` and each region's
+  ``node_read_requests``;
+- for every SLO observer (``FleetObserver``): its alert log and the
+  problems of its last merged exposition (``aggregation_problems``).
 
 Before the snapshot, every agent the case built (``CCManagerAgent``)
 delivers what it has queued (``flush_events``): its Events are posted by
@@ -28,8 +38,10 @@ passes.
 Masked before the comparison, and nothing else: timestamps (ISO-8601
 strings, the ``firstTimestamp``/``lastTimestamp``/``timestamp``/``at``
 fields, the slice heartbeat's clock reading, the rollout record's
-``started`` and ``heartbeat`` clock readings, and the ``in 0.12s``
-durations an Event message carries), uuids, the random suffixes of
+``started`` and ``heartbeat`` clock readings, the ``in 0.12s``
+durations an Event message carries, an SLO alert's ``at``, a failover's
+``handoff_s`` and an evacuation's ``cordon_s``, both seconds on the host
+clock, and a lease's ``acquireTime`` and ``renewTime``), uuids, the random suffixes of
 one-shot and policy Event names and the random ``id`` and ``owner`` of
 a document that holds a clock reading (a rollout record), trace ids
 (``traceparent`` values), and the evidence digests computed over a
@@ -47,7 +59,10 @@ import itertools
 import json
 import pathlib
 import re
+import socket
 import sys
+import threading
+import time
 import types
 
 import pytest
@@ -68,7 +83,12 @@ _ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile)\.|\.ccpolicy\.)[0-9a-f]+")
 _TS_KEYS = frozenset({"firstTimestamp", "lastTimestamp", "timestamp", "at",
                       "eventTime", "creationTimestamp",
                       # the rollout record's clock readings (epoch seconds)
-                      "started", "heartbeat"})
+                      "started", "heartbeat",
+                      # seconds a shard failover and a region's cordon
+                      # took, on the host clock
+                      "handoff_s", "cordon_s",
+                      # a lease's stamps
+                      "acquireTime", "renewTime"})
 _DIGEST_KEYS = frozenset({"digest"})
 #: the random ids a rollout record carries (its id, its owner's fencing
 #: token), masked in a document that holds a clock reading
@@ -177,6 +197,10 @@ class _Recorder:
         self.admission = []
         self.doctor_reports = []
         self.agents = []
+        #: [object, its view when the case stopped it, or None]
+        self.shard_managers = []
+        self.federations = []
+        self.observers = []
 
     def snapshot(self, tmp: str):
         for agent in self.agents:
@@ -188,7 +212,70 @@ class _Recorder:
             "batcher_writes": _publish_history(self.batcher_writes),
             "admission": mask(self.admission),
             "doctor_reports": mask(reports),
+            "shard_managers": [view if view is not None
+                               else _shard_view(mgr)
+                               for mgr, view in self.shard_managers],
+            "federations": [view if view is not None else _federation_view(f)
+                            for f, view in self.federations],
+            "observers": [_observer_view(o) for o in self.observers],
         }, tmp)
+
+
+def _leases(kube):
+    """shard lease name -> its holder and transition count, for a
+    ``FakeKube`` (None for any other client)."""
+    if not hasattr(kube, "_leases"):
+        return None
+    with kube._lock:
+        leases = copy.deepcopy(kube._leases)
+    return {f"{ns}/{name}": {
+        "holder": (lease.get("spec") or {}).get("holderIdentity"),
+        "transitions": (lease.get("spec") or {}).get("leaseTransitions")}
+        for (ns, name), lease in sorted(leases.items())}
+
+
+def _shard_view(mgr):
+    return mask({
+        "stats": mgr.stats(),
+        "pools": {b.shard_id: sorted(b.pools) for b in mgr.bundles()},
+        "leases": _leases(mgr.client_factory()),
+    })
+
+
+def _federation_view(fed):
+    return mask({
+        "stats": fed.stats(),
+        "attestation": fed.attestation_summary(),
+        "node_read_requests": {
+            region: getattr(fed.specs[region].client_factory(),
+                            "node_read_requests", None)
+            for region in fed.regions},
+    })
+
+
+def _observer_view(observer):
+    return mask({"alerts": list(observer.alerts),
+                 "aggregation_problems": list(
+                     observer.aggregation_problems)})
+
+
+def _record_stops(mp: pytest.MonkeyPatch, cls, into, view) -> None:
+    """Record every ``cls`` built in ``into`` as ``[obj, None]``; its
+    first ``stop()`` fills in ``view(obj)`` as it stood just before."""
+    init, stop = cls.__init__, cls.stop
+
+    def record_init(self, *a, **kw):
+        init(self, *a, **kw)
+        into.append([self, None])
+
+    def record_stop(self, *a, **kw):
+        for entry in into:
+            if entry[0] is self and entry[1] is None:
+                entry[1] = view(self)
+        return stop(self, *a, **kw)
+
+    mp.setattr(cls, "__init__", record_init)
+    mp.setattr(cls, "stop", record_stop)
 
 
 def _untmp(value, tmp: str):
@@ -271,6 +358,31 @@ def settled(snapshot):
             for kube in snapshot["kubes"]]
 
 
+#: the stats of a sharded control plane that do not move with its
+#: leases: the region, the ring's shape and partition, the host count
+_RING_STATS = ("region", "shards", "hosts", "partition")
+#: a federation's stats that do not move with its regions' leases
+_POSTURE_STATS = ("regions", "ring_members", "posture", "evacuated",
+                  "partitioned", "evacuations")
+
+
+def without_live_leases(snapshot):
+    """The snapshot without what moves with the shard leases when a case
+    makes them lapse (a region's API server blacked out): each shard
+    manager's coverage, live hosts, failover log, live shards' pools and
+    lease holders, and each federation's managers' stats, attestation
+    summary (read from the live shards' reports) and node reads (the
+    informers' relists after the outage)."""
+    out = copy.deepcopy(snapshot)
+    out["shard_managers"] = [
+        {"stats": {k: m["stats"][k] for k in _RING_STATS}}
+        for m in out["shard_managers"]]
+    out["federations"] = [
+        {"stats": {k: f["stats"][k] for k in _POSTURE_STATS}}
+        for f in out["federations"]]
+    return out
+
+
 def without_doctor(snapshot):
     """The snapshot without the idle tick's doctor self-check: its
     verdict label and annotation, on the nodes and in the batcher's
@@ -325,6 +437,19 @@ def recording(side: Side, mp: pytest.MonkeyPatch, testmod):
         rec.agents.append(self)
 
     mp.setattr(agent_cls, "__init__", record_agent)
+
+    _record_stops(mp, side.module("shard").ShardManager,
+                  rec.shard_managers, _shard_view)
+    _record_stops(mp, side.module("federation").FederationManager,
+                  rec.federations, _federation_view)
+    observer_cls = side.module("fleetobs").FleetObserver
+    observer_init = observer_cls.__init__
+
+    def record_observer(self, *a, **kw):
+        observer_init(self, *a, **kw)
+        rec.observers.append(self)
+
+    mp.setattr(observer_cls, "__init__", record_observer)
 
     doctor = side.module("doctor")
     for module, fname, into in (
@@ -455,3 +580,71 @@ def planner_calls(mp: pytest.MonkeyPatch, entry_points):
 
         mp.setattr(module, fname, counted)
     yield calls
+
+
+def at_shards(params, shards, only=None):
+    """``params`` (from :func:`cases`) at one planner shard count
+    (``TPU_CC_PLANNER_MESH``); with ``only``, just the cases it names."""
+    return [pytest.param(*p.values, shards, id=f"{p.id}-mesh{shards}")
+            for p in params if only is None or p.values[0] in only]
+
+
+#: the default ports of the fleet controller, the policy controller, the
+#: agent's health server and the webhook
+FIXED_PORTS = frozenset({8090, 8091, 8089, 8443})
+
+
+def no_fixed_ports(mp: pytest.MonkeyPatch):
+    """Refuse, for the case's duration, any bind to one of
+    ``FIXED_PORTS``: the reference's own test file may run on another
+    worker at the same time. Returns the list of ports the case bound,
+    which the caller checks too (a bind refused in a controller's thread
+    may be swallowed there)."""
+    real = socket.socket.bind
+    bound = []
+
+    def bind(self, address):
+        if isinstance(address, tuple) and len(address) >= 2:
+            bound.append(address[1])
+            if address[1] in FIXED_PORTS:
+                raise OSError(f"a mirrored case bound fixed port "
+                              f"{address[1]}")
+        return real(self, address)
+
+    mp.setattr(socket.socket, "bind", bind)
+    return bound
+
+
+#: threads a case may leave running: the informers' watches (they feed
+#: encodings and never reach the planner, and stay blocked in their
+#: watch until its next event or its timeout), the fake API server's
+#: request handlers and the process's one asyncio bridge
+#: (``k8s/aio_bridge.py``)
+IDLE_THREADS = re.compile(
+    r"node-informer-|cc-aio-loop$|asyncio_|.*\(process_request_thread\)$")
+
+
+@contextlib.contextmanager
+def threads_ended(timeout_s: float = 60.0):
+    """At the block's end, wait up to ``timeout_s`` for every thread the
+    block started to end, but for ``IDLE_THREADS``; yields the list that
+    then holds the names of those still running. A controller thread
+    that outlives its ``stop()`` (``ControllerShard.stop`` joins for
+    5 s) may still be planning when the case's monkeypatch restores
+    ``TPU_CC_PLANNER_MESH``; the reference's planner keys a compiled
+    function by the device count it read before the restore and builds
+    it over the devices it reads after, and a later test at that count
+    gets a function for other devices."""
+    before = set(threading.enumerate())
+    left = []
+    try:
+        yield left
+    finally:
+        deadline = time.monotonic() + timeout_s
+        while True:
+            left[:] = sorted(t.name for t in set(threading.enumerate())
+                             - before
+                             if t.is_alive() and not IDLE_THREADS.match(t.name))
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
