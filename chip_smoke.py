@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the fleet planner, the node's flip, the node
-agent, the rollout, the policy controller and the sharded control plane)
-on one NVIDIA GPU and check it.
+agent, the rollout, the policy controller, the sharded control plane and
+the scenario lab) on one NVIDIA GPU and check it.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -139,6 +139,31 @@ exits non-zero without them, and whenever any phase fails.
    no node from either API server (``federation``). Every K1 and K2
    launch of a shard or region thread is recorded with its difference
    from its plain version and required 0 in the main thread.
+12. The scenario lab, on one planner shard, with phase 9's provider
+   settings: the bench's four lab runs (``bench.py``), each scenario as
+   written in ``scenarios/``, replicas over the fake device backend and
+   every controller planning on ``cuda:0``: (a) ``SimLab`` on
+   ``scale-256`` (256 live replicas in 8 pools, the fleet and policy
+   controllers, watch drops, agent crashes, a throttle squeeze, a 410
+   and two list 429s): the artifact ok, all 256 nodes read
+   ``cc.mode.state=on``, K1 and K2 launched; (b) ``scale-1024`` (1,024
+   replicas, 16 pools, 4 controller shards, host 0 killed and restarted,
+   host 1 killed): ok, with ``pool1024_convergence_s`` and
+   ``shard_failover_convergence_s``, K1 from every shard's session; (c)
+   ``upgrade-256`` (a rolling agent upgrade between two waves, no
+   controller, so no kernel); (d) ``FederationLab`` on
+   ``federation-2x512`` (two regions of 512 nodes, 2 shards each, a
+   partition and an evacuation): ``region_evac_convergence_s``, K1 from
+   both regions' shards. Each run's ``check_run`` finds no violation,
+   each lab's every K1 and K2 launch (from whatever thread) is held to
+   its plain version in the main thread once the lab has stopped, and
+   device memory is back to its level once its threads have ended (one
+   ``simlab`` line each: convergence, the watch pump's lag, throttle
+   waits, host seconds, kernels, busy share, peak memory). Then (e)
+   ``python -m tpu_cc_manager_torch simlab validate scenarios/*.json``,
+   (f) ``simlab run scenarios/smoke-64.json --out`` and (g) ``simlab
+   propgen --seeds 1,2 --families shards,policy`` in subprocesses, with
+   no find and nothing written under ``scenarios/``.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -146,6 +171,7 @@ K4 work alone, to compare two versions of K1 within one chip call.
 phases 2 and 8 (a) alone, with the row count where K3's one-CTA kernel
 and K1's route cross (the ``k3_crossover`` line), to compare two
 versions of K2 and K3 within one chip call.
+``python3 chip_smoke.py --simlab`` runs phases 1 and 12 alone.
 ``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
@@ -153,10 +179,11 @@ are set to 0 just before phase 3 and read just after phase 5, set to 0
 again just before phase 7 and read just after it, again just before
 phase 8's (b) and read just after its (d), again just before phase 9
 and read just after it, again just before phase 10 and read just after
-it, and again just before phase 11 and read just after it: each kernel
+it, again just before phase 11 and read just after it, and again just
+before phase 12 and read just after it: each kernel
 must have been launched on its path (on phase 9's, K5 and K1 or K3; on
 phase 10's, K1, K2 and K5; on phase 11's, K1 from every shard and
-region shard, K2 and K5), K2 exactly once per card per incremental tick
+region shard, K2 and K5; on phase 12's, K1 and K2), K2 exactly once per card per incremental tick
 or scan (on phase 11's, per row-writing tick of each shard session), K3
 once per ``entry()`` call and, in the dry run, once per card plus the
 cross-check, and on the paths of phases 10 and 11 K5 once per card per
@@ -3550,6 +3577,298 @@ def shard_path(phase10: Dict[str, dict]) -> Dict[str, int]:
     return launches
 
 
+# ------------------------------------------- phase 12: the scenario lab
+
+#: the bench's four lab runs (``bench.py``'s ``run_simlab_bench``,
+#: ``run_shard_bench``, ``run_lifecycle_bench``,
+#: ``run_federation_bench``): scenario -> the artifact's metrics that
+#: give the bench's numbers, by the bench's name
+SIMLAB_SCENARIOS = {
+    "scale-256": {"pool256_convergence_s": "pool256_convergence_s"},
+    "scale-1024": {"pool1024_convergence_s": "pool1024_convergence_s",
+                   "shard_failover_convergence_s":
+                       "shard_failover_convergence_s"},
+    "upgrade-256": {"lifecycle_convergence_s": "pool256_convergence_s"},
+    "federation-2x512": {"region_evac_convergence_s":
+                             "region_evac_convergence_s"},
+}
+#: phase 12 (g)'s episodes
+PROPGEN_ARGS = ("--seeds", "1,2", "--families", "shards,policy")
+SIMLAB_CLI_TIMEOUT_S = 300
+
+
+def lab_cells(lab: Any) -> List[Any]:
+    """(store, pump, node names) of each API server a lab ran: one for
+    ``SimLab``, one per region for ``FederationLab``."""
+    if lab.server is not None:
+        return [(lab.server.store, lab.pump, lab.node_names)]
+    return [(cell.store, cell.pump, cell.node_names)
+            for cell in lab.cells.values()]
+
+
+def lab_threads(before: set) -> List[str]:
+    """:func:`started_since`, but for the fake API servers' request
+    handlers: a watch stream's handler runs on to its watch's timeout
+    after its client has gone, and holds no controller."""
+    return [t for t in started_since(before)
+            if not t.endswith("(process_request_thread)")]
+
+
+def lab_readings(cells: List[Any]) -> Tuple[Dict[str, Any], List[float], int]:
+    """Every node's ``cc.mode.state`` on a stopped lab's API servers, its
+    watch pumps' lag samples and their deliveries. A function of its own,
+    so that no loop variable of the caller keeps a pump, and through its
+    replicas the lab and its controllers' device sessions, alive."""
+    from tpu_cc_manager_torch import labels as L
+
+    states: Dict[str, Any] = {}
+    lags: List[float] = []
+    delivered = 0
+    for store, pump, names in cells:
+        for node in names:
+            states[node] = store.peek_node_label(node,
+                                                 L.CC_MODE_STATE_LABEL)
+        with pump._lag_lock:
+            lags += pump.lag_samples
+        delivered += pump.delivered_total
+    return states, lags, delivered
+
+
+def wake_lab_watches(cells: List[Any], policy: bool) -> None:
+    """:func:`wake_watches` for a stopped lab: one node write on each of
+    its API servers' stores (the scenario's own write path, past any
+    write fault still armed), and a policy object where the lab ran the
+    policy plane."""
+    from tpu_cc_manager_torch import labels as L
+
+    for store, _pump, names in cells:
+        store.set_node_labels_direct(names[0],
+                                     {"tpu-cc-smoke/stopped": "true"})
+        if policy:
+            store.add_custom(L.POLICY_GROUP, L.POLICY_PLURAL, {
+                "apiVersion": f"{L.POLICY_GROUP}/{L.POLICY_VERSION}",
+                "kind": L.POLICY_KIND,
+                "metadata": {"name": "smoke-stopped"},
+                "spec": {"mode": "off",
+                         "nodeSelector": "tpu-cc-smoke/none"}})
+
+
+def simlab_scenario(name: str) -> Tuple[dict, List[dict]]:
+    """One of the bench's lab runs on the card, as ``bench.py`` runs it:
+    the scenario as written, every controller planning on ``cuda:0``,
+    every K1 and K2 launch recorded with its difference from its plain
+    version (held by the caller), the run under ``torch.profiler``; then
+    the invariants oracle, every node's state read from the lab's API
+    servers, and device memory back to its level once the lab's threads
+    have ended. Returns the ``simlab`` finding and the launch rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_cc_manager_torch.simlab.federation import FederationLab
+    from tpu_cc_manager_torch.simlab.invariants import check_run
+    from tpu_cc_manager_torch.simlab.report import percentile
+    from tpu_cc_manager_torch.simlab.runner import SimLab
+    from tpu_cc_manager_torch.simlab.scenario import load_scenario
+
+    sc = load_scenario(os.path.join(ROOT, "scenarios", f"{name}.json"))
+    # a lab is a cycle of references: the last one's sessions are freed
+    # by a collection, not when its last name goes
+    gc.collect()
+    torch.cuda.synchronize()
+    memory_before = torch.cuda.memory_allocated(DEVICE)
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    threads_before = set(threading.enumerate())
+    lab = FederationLab(sc) if sc.regions else SimLab(sc)
+    with held_to_plain() as held, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        art = lab.run()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(DEVICE) - memory_before
+    violations = [v.to_dict() for v in check_run(lab, art)]
+    cells = lab_cells(lab)
+    states, lags, delivered = lab_readings(cells)
+    del lab
+    wake_lab_watches(cells, policy=sc.controllers.policy)
+    del cells
+    wait_for(lambda: not lab_threads(threads_before), 60,
+             f"{name}: the lab's threads to end")
+    gc.collect()
+    torch.cuda.synchronize()
+    memory_after = torch.cuda.memory_allocated(DEVICE)
+
+    m = art["metrics"]
+    device = kernel_device_time(prof)
+    kernel_ms = device["kernel_ms"] if isinstance(device, dict) else 0.0
+    converged = sum(s == sc.converge.mode for s in states.values())
+    out = {
+        "scenario": name, "nodes": sc.nodes, "ok": art["ok"],
+        "notes": art.get("notes"),
+        **{axis: m.get(key) for axis, key in SIMLAB_SCENARIOS[name].items()},
+        "initial_convergence_s": m["initial_convergence_s"],
+        "converged_nodes": converged,
+        "violations": violations,
+        "watch_pump": {"lag_p50_s": percentile(lags, 0.50),
+                       "lag_p99_s": percentile(lags, 0.99),
+                       "lag_samples": len(lags),
+                       "delivered": delivered},
+        "throttle": {k: m["throttle"].get(k) for k in
+                     ("waits", "wait_s_total", "wait_p50_s", "wait_max_s")},
+        "faults": [f["fault"] for f in art["faults"] if "fault" in f],
+        "host_s": host_s,
+        "launches": {k: len(launches_of(held, k))
+                     for k in ("fleet_tick", "delta_scatter")},
+        "shapes": sorted({f"{r['kernel']}:{r['shape']}" for r in held}),
+        "device": device,
+        "busy_share": kernel_ms / 1e3 / host_s,
+        "memory_before": memory_before, "memory_peak_above": peak,
+        "memory_after": memory_after,
+    }
+    require(art["ok"], f"{name}: the lab did not converge: {art.get('notes')}")
+    require(violations == [], f"{name}: invariants violated: {violations}")
+    require(all(out[axis] is not None for axis in SIMLAB_SCENARIOS[name]),
+            f"{name}: no {list(SIMLAB_SCENARIOS[name])} in the artifact")
+    require(memory_after <= memory_before,
+            f"{name}: device memory {memory_before} -> {memory_after} bytes "
+            "after the lab and its threads stopped")
+    return out, held
+
+
+def simlab_entry_points(tmp: str) -> dict:
+    """Phase 12 (e)-(g): ``simlab validate``, ``run`` and ``propgen`` in
+    subprocesses against the repository's scenarios, planning on the
+    card."""
+    from tpu_cc_manager_torch.simlab.scenario import load_scenario
+
+    env = dict(os.environ, **NO_PROVIDERS, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("TPU_CC_TORCH_DEVICE", None)
+    scenarios = os.path.join(ROOT, "scenarios")
+    before = sorted(os.listdir(scenarios))
+    paths = [os.path.join(scenarios, f) for f in before
+             if f.endswith(".json")]
+    out: Dict[str, Any] = {"scenarios": len(paths)}
+
+    t0 = time.perf_counter()
+    p = agent_cli(["simlab", "validate", *paths], env, SIMLAB_CLI_TIMEOUT_S)
+    out["validate_s"] = time.perf_counter() - t0
+    require(p.returncode == 0,
+            f"simlab validate exited {p.returncode}: {p.stderr[-2000:]}")
+    want = []
+    for path in paths:
+        sc = load_scenario(path)
+        want.append(f"{path}: ok ({sc.nodes} nodes, "
+                    f"{len(sc.actions)} actions)")
+    require(p.stdout.splitlines() == want,
+            f"simlab validate printed {p.stdout[-2000:]}")
+
+    art_path = os.path.join(tmp, "smoke-64.json")
+    t0 = time.perf_counter()
+    p = agent_cli(["simlab", "run", os.path.join(scenarios, "smoke-64.json"),
+                   "--out", art_path], env, SIMLAB_CLI_TIMEOUT_S)
+    out["run_s"] = time.perf_counter() - t0
+    require(p.returncode == 0,
+            f"simlab run exited {p.returncode}: {p.stderr[-2000:]}")
+    with open(art_path) as f:
+        art = json.load(f)
+    require(art["ok"] is True and art["nodes"] == 64,
+            f"simlab run's artifact {str(art)[:2000]}")
+    out["run_convergence_s"] = art["metrics"]["pool64_convergence_s"]
+
+    finds, reports = os.path.join(tmp, "finds"), os.path.join(tmp, "reports")
+    t0 = time.perf_counter()
+    p = agent_cli(["simlab", "propgen", *PROPGEN_ARGS, "--scenario-dir",
+                   finds, "--report-dir", reports], env, SIMLAB_CLI_TIMEOUT_S)
+    out["propgen_s"] = time.perf_counter() - t0
+    require(p.returncode == 0,
+            f"simlab propgen exited {p.returncode}: {p.stdout[-2000:]} "
+            f"{p.stderr[-2000:]}")
+    written = [d for d in (finds, reports)
+               if os.path.isdir(d) and os.listdir(d)]
+    require(not written, f"simlab propgen wrote a find: {written}")
+    require(sorted(os.listdir(scenarios)) == before,
+            "simlab propgen wrote into scenarios/")
+    # a progress line per episode, then the episodes' summaries
+    lines = p.stdout.splitlines()
+    episodes = json.loads("\n".join(lines[lines.index("["):]))
+    require(len(episodes) == 2 and all(e["ok"] for e in episodes),
+            f"simlab propgen's episodes {str(episodes)[:2000]}")
+    out["propgen"] = [{k: e.get(k) for k in ("seed", "name", "ok",
+                                             "convergence")}
+                      for e in episodes]
+    return out
+
+
+def simlab_path() -> Dict[str, int]:
+    """Phase 12 with its launch counts set to 0 just before it and read
+    just after it: every K1 and K2 launch of the labs' threads equal to
+    its plain version; K1 and K2 in (a), K1 from every shard's session
+    in (b) and from every region shard in (d), none in (c)."""
+    from tpu_cc_manager_torch.device import base as device_base
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    nodes_before = dev_nodes()
+    cwd_before = set(os.listdir(ROOT))
+    set_mesh(1)
+    labs: Dict[str, dict] = {}
+    held: Dict[str, List[dict]] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, \
+            no_providers():
+        device_base.set_backend(None)
+        reset_launches()
+        try:
+            for name in SIMLAB_SCENARIOS:
+                labs[name], held[name] = simlab_scenario(name)
+                finding(phase="simlab", **labs[name])
+            entry = simlab_entry_points(tmp)
+        except Exception:
+            # what the phase had seen when it failed
+            finding(phase="simlab_path_failed", labs=labs)
+            raise
+        finally:
+            device_base.set_backend(None)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    rows = [r for rs in held.values() for r in rs]
+    require_plain(rows, "the labs' threads")
+    for kernel in ("fleet_tick", "delta_scatter"):
+        require(len(launches_of(rows, kernel)) == launches[kernel],
+                f"{len(launches_of(rows, kernel))} {kernel} launches held "
+                f"of {launches[kernel]}")
+    k1 = {name: {r["thread"] for r in launches_of(rs, "fleet_tick")}
+          for name, rs in held.items()}
+    require(labs["scale-256"]["launches"]["fleet_tick"] > 0
+            and labs["scale-256"]["launches"]["delta_scatter"] > 0,
+            f"scale-256 launched {labs['scale-256']['launches']}")
+    require(labs["scale-256"]["converged_nodes"] == 256,
+            f"scale-256: {labs['scale-256']['converged_nodes']} of 256 "
+            "nodes read cc.mode.state=on")
+    for name in ("scale-1024", "upgrade-256"):
+        require(labs[name]["converged_nodes"] == labs[name]["nodes"],
+                f"{name}: {labs[name]['converged_nodes']} of "
+                f"{labs[name]['nodes']} nodes converged")
+    for sid in (f"shard-{k}" for k in range(4)):
+        require(f"shard-fleet-{sid}" in k1["scale-1024"],
+                f"scale-1024: {sid}'s session launched no K1 "
+                f"({sorted(k1['scale-1024'])})")
+    require(not held["upgrade-256"],
+            "upgrade-256 runs no controller, yet launched "
+            f"{labs['upgrade-256']['launches']}")
+    for region in ("us-east", "eu-west"):
+        require(any(t.startswith(f"shard-fleet-{region}/")
+                    for t in k1["federation-2x512"]),
+                f"federation-2x512: {region}'s shards launched no K1 "
+                f"({sorted(k1['federation-2x512'])})")
+    require(dev_nodes() == nodes_before, "a /dev/nvidia* node changed")
+    require(set(os.listdir(ROOT)) == cwd_before,
+            "the labs wrote into the repository root")
+    finding(phase="simlab_entry_points", **entry)
+    finding(phase="simlab_path", launches=launches,
+            k1_threads={name: sorted(ts) for name, ts in k1.items()})
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3675,6 +3994,7 @@ def run() -> None:
     agent_launches = agent_path()
     controller_launches, phase10 = controller_path()
     shard_launches = shard_path(phase10)
+    simlab_launches = simlab_path()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3687,6 +4007,7 @@ def run() -> None:
             "agent_path_launches": agent_launches[name],
             "controller_path_launches": controller_launches[name],
             "shard_path_launches": shard_launches[name],
+            "simlab_path_launches": simlab_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
             "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
             "shape": main["shape"], "ms": main["ms"],
@@ -3725,6 +4046,14 @@ def run_k2k3() -> None:
     print(smi, flush=True)
 
 
+def run_simlab() -> None:
+    """``--simlab``: phases 1 and 12 alone, for iterating on the lab."""
+    set_mesh(1)
+    smi, _lib, _rate, _floor = setup()
+    simlab_path()
+    print(smi, flush=True)
+
+
 def run_multi_card() -> None:
     """``--multi-card``: phase 8 (e) alone, on every visible card."""
     from tpu_cc_manager_torch.kernels import _build
@@ -3741,13 +4070,13 @@ def run_multi_card() -> None:
 
 
 MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
-         ("--multi-card",): run_multi_card}
+         ("--simlab",): run_simlab, ("--multi-card",): run_multi_card}
 
 
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
         print("usage: python3 chip_smoke.py "
-              "[--k1 | --k2k3 | --multi-card]", file=sys.stderr)
+              "[--k1 | --k2k3 | --simlab | --multi-card]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

@@ -417,3 +417,51 @@ def test_policy_controller_once(unhealthy, store, rc, monkeypatch, capsys,
         assert report["unhealthy_policies"] == []
         assert report["policies"]["pool"]["phase"] == "Converged"
         assert report["policies"]["pool"]["converged"] == 3
+
+
+# -------------------------------------------------------------- simlab
+
+SCENARIOS = sorted(str(p) for p in (
+    __import__("pathlib").Path(__file__).resolve().parent.parent
+    / "scenarios").glob("*.json"))
+
+
+def _simlab_cli(side, argv, capsys):
+    rc = side.module("__main__").main(argv)
+    captured = capsys.readouterr()
+    return {"rc": rc, "out": captured.out,
+            "err": [line for line in captured.err.splitlines()
+                    if "INVALID" in line]}
+
+
+def test_simlab_validate_every_committed_scenario(capsys):
+    """``simlab validate scenarios/*.json`` on both CLIs: rc 0, one
+    ``ok (<nodes> nodes, <actions> actions)`` line per file, the same
+    lines on both."""
+    want, got = (_simlab_cli(side, ["simlab", "validate"] + SCENARIOS,
+                             capsys) for side in (REF, PORT))
+    assert got == want, f"port and reference differ ({VERSIONS})"
+    assert got["rc"] == 0 and got["err"] == []
+    lines = got["out"].splitlines()
+    assert len(lines) == len(SCENARIOS) >= 16
+    scenario = PORT.module("simlab.scenario")
+    for path, line in zip(SCENARIOS, lines):
+        sc = scenario.load_scenario(path)
+        assert line == (f"{path}: ok ({sc.nodes} nodes, "
+                        f"{len(sc.actions)} actions)")
+
+
+def test_simlab_validate_an_invalid_document(capsys, tmp_path):
+    """A scenario with an unknown key: rc 1 on both CLIs, the same
+    ``INVALID`` line naming the file and the key, nothing on stdout."""
+    path = tmp_path / "bad.json"
+    path.write_text(json.dumps({
+        "version": 1, "name": "bad", "nodes": 4, "bogus": 1,
+        "actions": [{"at": 0.0, "action": "set_mode", "mode": "on"}],
+        "converge": {"mode": "on", "timeout_s": 30}}))
+    want, got = (_simlab_cli(side, ["simlab", "validate", str(path)],
+                             capsys) for side in (REF, PORT))
+    assert got == want, f"port and reference differ ({VERSIONS})"
+    assert got["rc"] == 1 and got["out"] == ""
+    (line,) = got["err"]
+    assert line.startswith(f"{path}: INVALID: ") and "bogus" in line

@@ -27,7 +27,10 @@ COPIES = (
     "evidence.py", "leader.py", "fleet.py", "labels.py", "k8s/batch.py",
     "drain.py", "slice_coord.py", "doctor.py", "agent.py", "webhook.py",
     "rollout.py", "policy.py", "fleetobs.py", "shard.py",
-    "federation.py",
+    "federation.py", "simlab/scenario.py", "simlab/report.py",
+    "simlab/pump.py", "simlab/replica.py", "simlab/faults.py",
+    "simlab/invariants.py", "simlab/runner.py", "simlab/federation.py",
+    "simlab/propgen.py", "simlab/__init__.py",
 )
 
 #: module -> [(name, reference block, port block)]

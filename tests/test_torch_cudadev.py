@@ -324,16 +324,6 @@ def test_get_cc_mode_cli(tmp_path, monkeypatch, capsys):
     assert out == {"torch:cpu:0": {"cc": "devtools", "ici": "off"}}
 
 
-@pytest.mark.parametrize("argv", [
-    ["simlab", "validate", "x.json"],
-])
-def test_other_subcommands_exit_2_naming_their_roadmap_item(argv, capsys):
-    assert cli.main(argv) == 2
-    captured = capsys.readouterr()
-    assert "not ported yet" in captured.err and "ROADMAP" in captured.err
-    assert captured.out == ""
-
-
 def test_reset_leaves_a_tick_session_ticking_the_same(cuda_backend,
                                                       monkeypatch):
     """The restart analog never resets the CUDA context: it synchronizes

@@ -1,23 +1,16 @@
 """The port's federation layer (``federation.py``) held to the reference's.
 
-The 10 cases of tests/test_federation.py that exercise ``federation.py``
-run on both packages (``tests/torch_mirror.py``) on a one-shard planner:
+The 13 cases of tests/test_federation.py run on both packages (``tests/torch_mirror.py``) on a one-shard planner:
 every assertion holds on each side, and what each case leaves behind must
 be equal on the two sides, the state of every ``FederationManager`` when
 the case stopped it included (its ``stats()``, its
 ``attestation_summary()`` and each region's ``node_read_requests``, with
 each region's ``ShardManager``). The cases that reach the planner run
 again at 8 planner shards in tests/test_torch_shard_mesh.py; the port
-plans on the CPU (``TPU_CC_TORCH_DEVICE=cpu``).
-
-The file's three schema-2 cases test ``simlab/scenario.py``'s
-``validate_scenario``, which the port does not have yet (ROADMAP Queue 1
-item 5, slice 10): they stay out of the mirror, by name (``SCHEMA2``),
-and the twin imports the scenario schema from the reference through a
-named edit. The port itself never imports it.
+plans on the CPU (``TPU_CC_TORCH_DEVICE=cpu``). Three of the cases test
+schema 2 of the scenario lab (``simlab/scenario.py``'s regions), each on
+its own package's ``validate_scenario``.
 """
-
-import inspect
 
 import pytest
 
@@ -29,33 +22,26 @@ from torch_mirror import (  # noqa: E402
     at_shards, cases, port_twin, without_live_leases,
 )
 
-MODS = (test_federation, port_twin("test_federation", edits=[
-    ("the scenario schema stays the reference's until simlab is ported",
-     "from tpu_cc_manager_torch.simlab.scenario import (",
-     "from tpu_cc_manager.simlab.scenario import ("),
-]))
+MODS = (test_federation, port_twin("test_federation"))
 
-#: the cases that test simlab's scenario schema (``validate_scenario``),
-#: not ``federation.py``: they wait for simlab (ROADMAP Queue 1 item 5)
-SCHEMA2 = frozenset({
-    "test_region_faults_and_windows_are_schema2_gated_and_checked",
-    "test_regions_require_schema_2_and_errors_name_the_source",
-    "test_schema2_regions_validate_and_v1_documents_still_parse",
-})
-CASES = [p for p in cases(test_federation) if p.values[0] not in SCHEMA2]
+CASES = cases(test_federation)
 
 #: the cases that never reach the planner (the ring, the owner lookup
-#: and its errors, posture parsing, trust domains and the audit layer);
+#: and its errors, posture parsing, trust domains, the audit layer and
+#: the scenario schema's regions);
 #: the two live federations scan and run at 8 planner shards too. The
 #: test holds this true.
 OFF_PLANNER = frozenset({
     "test_members_in_and_unknown_region_falls_back_to_global",
     "test_owner_of_is_region_aware_and_rejects_strays",
     "test_posture_from_policy_reads_region_windows",
+    "test_region_faults_and_windows_are_schema2_gated_and_checked",
     "test_region_ring_deterministic_and_home_region_pinned",
     "test_region_ring_fails_over_out_of_region_only_when_region_empty",
     "test_region_ring_without_moves_about_one_nth_within_region",
+    "test_regions_require_schema_2_and_errors_name_the_source",
     "test_revoked_root_latches_outage_in_that_region_only",
+    "test_schema2_regions_validate_and_v1_documents_still_parse",
     "test_trust_domain_rotate_revoke_restore",
 })
 PLANNER = frozenset(p.values[0] for p in CASES) - OFF_PLANNER
@@ -78,11 +64,11 @@ RACY = {
 
 
 def test_schema2_names_exactly_the_scenario_schema_cases():
-    uses = {name for name, fn in vars(test_federation).items()
-            if name.startswith("test_") and inspect.isfunction(fn)
-            and "validate_scenario" in inspect.getsource(fn)}
-    assert uses == SCHEMA2
-    assert len(CASES) == 10
+    """Every case of tests/test_federation.py is mirrored: the three
+    schema-2 cases too, now that the port has the scenario lab."""
+    assert len(CASES) == 13
+    assert {p.values[0] for p in CASES} == {
+        name for name in vars(test_federation) if name.startswith("test_")}
 
 
 @pytest.mark.parametrize("name,params,shards", at_shards(CASES, 1))

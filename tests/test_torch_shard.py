@@ -102,13 +102,14 @@ def prepare(mp, shards=1):
 
 
 def run_mirrored(mods, planner, racy, name, params, shards, request,
-                 tmp_path, monkeypatch):
-    """One mirrored case at ``shards`` planner shards: both sides equal,
-    the planner reached exactly when ``planner`` says, no fixed port."""
+                 tmp_path, monkeypatch, view=None):
+    """One mirrored case at ``shards`` planner shards: both sides equal
+    (as ``view`` shows them, when given; see ``torch_mirror.both``), the
+    planner reached exactly when ``planner`` says, no fixed port."""
     bound = prepare(monkeypatch, shards)
     with planner_calls(monkeypatch, ENTRY_POINTS) as calls, \
             threads_ended() as left:
-        both(mods, name, params, request, tmp_path, VERSIONS, racy)
+        both(mods, name, params, request, tmp_path, VERSIONS, racy, view)
     assert not left, f"{name} left threads running: {left}"
     assert bool(calls) == (name in planner), (
         f"{name} {'reaches' if calls else 'does not reach'} the port's "

@@ -615,13 +615,16 @@ def no_fixed_ports(mp: pytest.MonkeyPatch):
     return bound
 
 
-#: threads a case may leave running: the informers' watches (they feed
-#: encodings and never reach the planner, and stay blocked in their
-#: watch until its next event or its timeout), the fake API server's
-#: request handlers and the process's one asyncio bridge
+#: threads a case may leave running: the informers' watches and a fleet
+#: controller's private watch (``fleet-watch``; they feed encodings on
+#: the host and never reach the planner, and stay blocked in their
+#: watch until its next event or its timeout, 300 s for the fleet's
+#: watch of a stopped API server), the fake API server's request
+#: handlers and the process's one asyncio bridge
 #: (``k8s/aio_bridge.py``)
 IDLE_THREADS = re.compile(
-    r"node-informer-|cc-aio-loop$|asyncio_|.*\(process_request_thread\)$")
+    r"node-informer-|fleet-watch$|cc-aio-loop$|asyncio_"
+    r"|.*\(process_request_thread\)$")
 
 
 @contextlib.contextmanager

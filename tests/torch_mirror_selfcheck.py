@@ -1,8 +1,9 @@
 """The reference's racy mirror cases, run against themselves.
 
 A case in the ``RACY`` table of ``tests/test_torch_{agent,multinode,
-slice,rollout,policy,shard,federation,fleetobs}.py`` is compared on a
-part of what it leaves behind, on the claim
+slice,rollout,policy,shard,federation,fleetobs,simlab,propgen,slo_sim}.py``
+is compared on a part of what it leaves behind (as the file's
+``mirror_view`` shows it, where it has one), on the claim
 that the reference differs from itself run to run past that part. This
 runs each such case on the reference ``MIRROR_RUNS`` times (10 by
 default) and prints one JSON line per case: the runs, how many left a
@@ -27,6 +28,7 @@ empty.
 """
 
 import collections
+import contextlib
 import json
 import os
 
@@ -39,9 +41,12 @@ import test_torch_federation  # noqa: E402
 import test_torch_fleetobs  # noqa: E402
 import test_torch_multinode  # noqa: E402
 import test_torch_policy  # noqa: E402
+import test_torch_propgen  # noqa: E402
 import test_torch_rollout  # noqa: E402
 import test_torch_shard  # noqa: E402
+import test_torch_simlab  # noqa: E402
 import test_torch_slice  # noqa: E402
+import test_torch_slo_sim  # noqa: E402
 from torch_mirror import REF, _first_difference, cases, run_case  # noqa: E402
 
 RUNS = int(os.environ.get("MIRROR_RUNS", "10"))
@@ -49,7 +54,8 @@ MODULES = {"agent": test_torch_agent, "multinode": test_torch_multinode,
            "slice": test_torch_slice, "rollout": test_torch_rollout,
            "policy": test_torch_policy, "shard": test_torch_shard,
            "federation": test_torch_federation,
-           "fleetobs": test_torch_fleetobs}
+           "fleetobs": test_torch_fleetobs, "simlab": test_torch_simlab,
+           "propgen": test_torch_propgen, "slo_sim": test_torch_slo_sim}
 #: the shard restart race (ROADMAP Queue 3), measured on every run
 RESTART = (test_torch_shard,
            "test_shard_restart_rejoins_as_standby_without_preemption")
@@ -66,17 +72,21 @@ def test_reference_against_itself(mod, name, request, tmp_path,
                                   monkeypatch):
     if hasattr(mod, "prepare"):
         mod.prepare(monkeypatch)
-    view = getattr(mod, "_view", lambda _name, _side, snap: snap)
+    recorded = getattr(mod, "mirror_view", None)
     part = mod.RACY[name][0] if name in mod.RACY else (lambda snap: snap)
     snaps, raised = [], collections.Counter()
-    for i in range(RUNS):
-        run_tmp = tmp_path / f"run{i}"
-        run_tmp.mkdir()
-        try:
-            snaps.append(view(name, REF, run_case(
-                REF, mod.MODS[0], name, {}, request, run_tmp)))
-        except Exception as e:  # counted, printed, and failed below
-            raised[f"{type(e).__name__}: {str(e)[:200]}"] += 1
+    with (recorded(monkeypatch) if recorded
+          else contextlib.nullcontext(None)) as mirror:
+        view = mirror or getattr(mod, "_view",
+                                 lambda _name, _side, snap: snap)
+        for i in range(RUNS):
+            run_tmp = tmp_path / f"run{i}"
+            run_tmp.mkdir()
+            try:
+                snaps.append(view(name, REF, run_case(
+                    REF, mod.MODS[0], name, {}, request, run_tmp)))
+            except Exception as e:  # counted, printed, and failed below
+                raised[f"{type(e).__name__}: {str(e)[:200]}"] += 1
     diffs = [_first_difference(snaps[0], s) for s in snaps[1:]] if snaps \
         else []
     print(json.dumps({

@@ -33,9 +33,12 @@ The subcommands the port has, as the reference's
   bounded rollouts toward the modes the cluster's policy objects declare
   (see tpu_cc_manager_torch.policy), its pool scans planned on the GPU;
   ``--once`` runs one pass, prints the report and exits non-zero when a
-  policy is unhealthy or the CRD is missing.
-
-``simlab`` exits 2 and names the ROADMAP item that ports it.
+  policy is unhealthy or the CRD is missing;
+- ``simlab run|validate|propgen``: the fleet-scale scenario lab (see
+  tpu_cc_manager_torch.simlab): live replica agents over fake devices
+  behind a wire-level fake API server, their fleet, policy and shard
+  controllers planning on the GPU; ``validate`` checks scenario files,
+  ``propgen`` generates, runs and shrinks seeded lifecycle episodes.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import sys
 
 from tpu_cc_manager_torch import labels as L
 from tpu_cc_manager_torch.agent import CCManagerAgent
-from tpu_cc_manager_torch.config import build_parser, parse_config
+from tpu_cc_manager_torch.config import parse_config
 from tpu_cc_manager_torch.device.base import DeviceError
 from tpu_cc_manager_torch.drain import build_drainer, set_cc_mode_state_label
 from tpu_cc_manager_torch.engine import FatalModeError, ModeEngine, NullDrainer
@@ -57,11 +60,6 @@ from tpu_cc_manager_torch.k8s.client import (
 from tpu_cc_manager_torch.obs import setup_logging
 
 log = logging.getLogger("tpu-cc-manager")
-
-#: subcommand -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "simlab": "ROADMAP Queue 1 item 5 (entry points and simlab)",
-}
 
 
 def _kube_client(cfg):
@@ -291,12 +289,6 @@ def _policy_controller(cfg, args) -> int:
 
 
 def main(argv=None) -> int:
-    command = build_parser().parse_args(argv).command
-    if command in NOT_PORTED:
-        print(f"tpu-cc-manager (PyTorch port): "
-              f"{command} is not ported yet; "
-              f"{NOT_PORTED[command]}", file=sys.stderr)
-        return 2
     cfg, args = parse_config(argv)
     setup_logging(cfg.debug, fmt=cfg.log_format)
 
@@ -354,6 +346,11 @@ def main(argv=None) -> int:
         from tpu_cc_manager_torch.doctor import main_from_args
 
         return main_from_args(cfg, args)
+
+    if args.command == "simlab":
+        from tpu_cc_manager_torch.simlab import main_from_args
+
+        return main_from_args(args)
 
     if args.command == "webhook":
         from tpu_cc_manager_torch.webhook import AdmissionServer
