@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the fleet planner, the node's flip, the node
-agent, the rollout, the policy controller, the sharded control plane and
-the scenario lab) on one NVIDIA GPU and check it.
+agent, the rollout, the policy controller, the sharded control plane, the
+scenario lab and the sysfs device backend) on one NVIDIA GPU and check
+it.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -164,6 +165,26 @@ exits non-zero without them, and whenever any phase fails.
    (f) ``simlab run scenarios/smoke-64.json --out`` and (g) ``simlab
    propgen --seeds 1,2 --families shards,policy`` in subprocesses, with
    no find and nothing written under ``scenarios/``.
+13. The sysfs backend (``device/gpu.py``) on the card's host: (a) a
+   read-only scan of ``/sys/bus/pci/devices`` (every NVIDIA function's
+   bdf, class and device id; the GPUs' paths, names and capability; the
+   NVSwitches), with the PCI address ``CudaBackend`` reads for ``cuda:0``
+   held to one of the sysfs GPUs, whose ``/dev/nvidia<minor>`` exists,
+   and, with ``CUDA_VISIBLE_DEVICES`` unset, the two backends' address
+   sets held equal. A host whose sysfs holds no PCI tree (a sandbox)
+   runs the rest over the one-function tree and driver file a card's
+   host shows, built from the card's PCI address, ``nvidia-smi``'s
+   device id and the minor of the devfs node the CUDA runtime holds, and
+   against the real ``/dev``. (b) A read-only holder scan of the card's
+   node. (c) ``ModeEngine`` over the sysfs backend flips on, off,
+   devtools (no gate, no holder check, ``TPU_SYSFS_RESET_ATTR`` unset),
+   each flip verified through ``get_modes()``, ``get-cc-mode`` and
+   ``probe-devices --backend sysfs`` in subprocesses and
+   ``verify_independent`` (through ``tpudevctl``, built from ``native/``
+   when ``make`` and ``g++`` are there); then ``doctor --offline``. (d)
+   No reset opened a file under sysfs for writing, ``/dev/nvidia*`` keep
+   their mode bits, and K5 through ``CudaBackend.probe_device(0)`` (one
+   launch) still answers, held bit-equal to its plain version.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -172,6 +193,7 @@ phases 2 and 8 (a) alone, with the row count where K3's one-CTA kernel
 and K1's route cross (the ``k3_crossover`` line), to compare two
 versions of K2 and K3 within one chip call.
 ``python3 chip_smoke.py --simlab`` runs phases 1 and 12 alone.
+``python3 chip_smoke.py --sysfs`` runs phases 1 and 13 alone.
 ``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
@@ -179,11 +201,13 @@ are set to 0 just before phase 3 and read just after phase 5, set to 0
 again just before phase 7 and read just after it, again just before
 phase 8's (b) and read just after its (d), again just before phase 9
 and read just after it, again just before phase 10 and read just after
-it, again just before phase 11 and read just after it, and again just
-before phase 12 and read just after it: each kernel
+it, again just before phase 11 and read just after it, again just
+before phase 12 and read just after it, and again just before phase
+13's probe (d) and read just after it: each kernel
 must have been launched on its path (on phase 9's, K5 and K1 or K3; on
 phase 10's, K1, K2 and K5; on phase 11's, K1 from every shard and
-region shard, K2 and K5; on phase 12's, K1 and K2), K2 exactly once per card per incremental tick
+region shard, K2 and K5; on phase 12's, K1 and K2; on phase 13's, K5
+exactly once), K2 exactly once per card per incremental tick
 or scan (on phase 11's, per row-writing tick of each shard session), K3
 once per ``entry()`` call and, in the dry run, once per card plus the
 cross-check, and on the paths of phases 10 and 11 K5 once per card per
@@ -3869,6 +3893,363 @@ def simlab_path() -> Dict[str, int]:
     return launches
 
 
+# ------------------------------------------- phase 13: the sysfs backend
+
+SYSFS_MODES = ("on", "off", "devtools")
+#: where the sysfs backend looks on a card's host
+PCI_ROOT = "/sys/bus/pci/devices"
+NVIDIA_PROC_ROOT = "/proc/driver/nvidia/gpus"
+DEV_ROOT = "/dev"
+#: the H100 SXM's PCI class: a 3D controller
+H100_CLASS = "0x030200"
+#: the variables phase 13 sets for its flips and CLI calls, and the ones
+#: it unsets
+SYSFS_ENV = {"TPU_CC_DEVICE_GATING": "none", "TPU_CC_HOLDER_CHECK": "none"}
+SYSFS_UNSET = ("TPU_SYSFS_RESET_ATTR", "TPUDEVCTL")
+
+
+def pci_functions(root: str) -> List[dict]:
+    """Every NVIDIA function under ``root``: its bdf, class and device id,
+    read straight from sysfs (not through the backend)."""
+    out: List[dict] = []
+    if not os.path.isdir(root):
+        return out
+    for bdf in sorted(os.listdir(root)):
+        attrs = {}
+        for name in ("vendor", "class", "device"):
+            try:
+                with open(os.path.join(root, bdf, name)) as f:
+                    attrs[name] = f.read().strip()
+            except OSError:
+                attrs[name] = None
+        if (attrs["vendor"] or "").lower() == "0x10de":
+            out.append({"bdf": bdf, "class": attrs["class"],
+                        "device": attrs["device"]})
+    return out
+
+
+def smi_card() -> Dict[str, Optional[str]]:
+    """``nvidia-smi``'s bus id, PCI device id and device minor of card 0,
+    one query each: None where it refuses the field, and ``[N/A]`` as it
+    prints it where it cannot read the value."""
+    out: Dict[str, Optional[str]] = {}
+    for field in ("pci.bus_id", "pci.device_id", "minor_number"):
+        proc = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        lines = proc.stdout.strip().splitlines()
+        out[field] = lines[0].strip() if proc.returncode == 0 and lines \
+            else None
+    return out
+
+
+def open_nvidia_minors() -> List[int]:
+    """The minors of the ``/dev/nvidia<N>`` nodes this process holds open:
+    the card the CUDA runtime opened."""
+    minors = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            target = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        name = os.path.basename(target)
+        if target.startswith("/dev/nvidia") and name[6:].isdigit():
+            minors.add(int(name[6:]))
+    return sorted(minors)
+
+
+def card_tree(root: str, bdf: str, device_id: str, minor: int
+              ) -> Tuple[str, str]:
+    """The one-function PCI tree and driver information file a card's host
+    shows for the card, under ``root``, from what the card reports: the
+    CUDA runtime's PCI address, ``nvidia-smi``'s device id and the minor
+    of the devfs node the runtime holds. Returns the sysfs root and the
+    driver's gpus root."""
+    sysfs = os.path.join(root, "sys_bus_pci_devices")
+    proc = os.path.join(root, "proc_driver_nvidia_gpus")
+    fn, info = os.path.join(sysfs, bdf), os.path.join(proc, bdf)
+    os.makedirs(fn)
+    os.makedirs(info)
+    for name, value in (("vendor", "0x10de"), ("device", device_id),
+                        ("class", H100_CLASS)):
+        with open(os.path.join(fn, name), "w") as f:
+            f.write(value + "\n")
+    with open(os.path.join(info, "information"), "w") as f:
+        f.write(f"Model: \t\t {torch.cuda.get_device_name(0)}\n"
+                f"Bus Location: \t {bdf}\nDevice Minor: \t {minor}\n")
+    return sysfs, proc
+
+
+@contextlib.contextmanager
+def sysfs_env(extra: Dict[str, str]):
+    """``SYSFS_ENV`` and ``extra`` in this process's environment and
+    ``SYSFS_UNSET`` out of it, restored after."""
+    keys = set(SYSFS_ENV) | set(extra) | set(SYSFS_UNSET)
+    keep = {k: os.environ.get(k) for k in keys}
+    for k in SYSFS_UNSET:
+        os.environ.pop(k, None)
+    os.environ.update(SYSFS_ENV)
+    os.environ.update(extra)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def reset_writes():
+    """Record every file a ``SysfsGpuChip.reset`` opens for writing (on
+    any thread); yields ``(writes, resets)``, the paths and the count of
+    resets."""
+    import builtins
+
+    from tpu_cc_manager_torch.device.gpu import SysfsGpuChip
+
+    writes: List[str] = []
+    resets = [0]
+    in_reset = threading.local()
+    real_open, real_reset = builtins.open, SysfsGpuChip.reset
+
+    def recording_open(file, mode="r", *a, **kw):
+        if getattr(in_reset, "on", False) and any(c in mode for c in "wax+"):
+            writes.append(os.path.abspath(str(file)))
+        return real_open(file, mode, *a, **kw)
+
+    def reset(self):
+        in_reset.on = True
+        resets[0] += 1
+        try:
+            return real_reset(self)
+        finally:
+            in_reset.on = False
+
+    builtins.open, SysfsGpuChip.reset = recording_open, reset
+    try:
+        yield writes, resets
+    finally:
+        builtins.open, SysfsGpuChip.reset = real_open, real_reset
+
+
+def build_tpudevctl(tmp: str) -> Optional[str]:
+    """``native/``'s ``tpudevctl`` built with ``make`` into ``tmp``, or None
+    when the host has no ``make`` or ``g++``."""
+    import shutil
+
+    if not (shutil.which("make") and shutil.which("g++")):
+        return None
+    build = os.path.join(tmp, "native-build")
+    target = os.path.join(build, "tpudevctl")
+    proc = subprocess.run(["make", "-C", os.path.join(ROOT, "native"),
+                           f"BUILD={build}", target],
+                          capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"make tpudevctl: {proc.stderr[-2000:]}")
+    return target
+
+
+def sysfs_phase(tmp: str, smi: str) -> Tuple[dict, Dict[str, int]]:
+    """Phase 13: the sysfs backend on the card's host. Returns the phase's
+    readings and the launch counts of its path (K5 from the probe after
+    the flip cycle)."""
+    from tpu_cc_manager_torch.device.cudadev import CudaBackend
+    from tpu_cc_manager_torch.device.gate import DeviceGate
+    from tpu_cc_manager_torch.device.gpu import SysfsGpuBackend
+    from tpu_cc_manager_torch.device.holders import HolderCheck, find_holders
+    from tpu_cc_manager_torch.engine import ModeEngine
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+    from tpu_cc_manager_torch.kernels.probe import (
+        probe_add_one, probe_add_one_reference)
+    from tpu_cc_manager_torch.trace import Tracer
+
+    t_phase = time.perf_counter()
+    nodes_before = dev_nodes()
+    state = os.path.join(tmp, "sysfs-state")
+
+    # (a) enumeration, read only: the host's own PCI tree first
+    t0 = time.perf_counter()
+    functions = pci_functions(PCI_ROOT)
+    host = SysfsGpuBackend(sysfs_root=PCI_ROOT, dev_root=DEV_ROOT,
+                           nvidia_proc_root=NVIDIA_PROC_ROOT,
+                           state_dir=state)
+    host_gpus, err = host.find_tpus()
+    host_switches = host.find_ici_switches()
+    enumerate_s = time.perf_counter() - t0
+    require(err is None, f"sysfs enumeration failed: {err}")
+    cuda = CudaBackend(state_dir=os.path.join(tmp, "cuda-state"))
+    cuda_chips, cerr = cuda.find_tpus()
+    require(cerr is None and cuda_chips, f"CUDA enumeration: {cerr}")
+    cuda_bdfs = {c.device_id: c.path[len("cuda:"):] for c in cuda_chips}
+    card = smi_card()
+    minors = open_nvidia_minors()
+    finding(phase="sysfs_host", pci_root=PCI_ROOT,
+            pci_root_exists=os.path.isdir(PCI_ROOT),
+            nvidia_proc_root_exists=os.path.isdir(NVIDIA_PROC_ROOT),
+            nvidia_functions=functions,
+            gpus=[{"bdf": c.bdf, "path": c.path, "name": c.name,
+                   "device_id": c.device_id,
+                   "cc_capable": c.is_cc_query_supported}
+                  for c in host_gpus],
+            nvswitches=[{"bdf": s.bdf, "path": s.path, "device_id": s.device_id}
+                        for s in host_switches],
+            cuda_bdfs=cuda_bdfs, nvidia_smi_card=card,
+            open_nvidia_minors=minors, enumerate_s=enumerate_s)
+    require(len(functions) >= len(host_gpus) + len(host_switches),
+            "the backend found functions the raw scan did not")
+    if host_gpus:
+        source, backend = "host", host
+        sysfs_root, proc_root = PCI_ROOT, NVIDIA_PROC_ROOT
+    else:
+        # No PCI tree in this machine's sysfs: the flip cycle runs over
+        # the tree a card's host shows, built from what the card reports,
+        # against the real devfs node. The smi minor, where it reads
+        # one, must be the node the CUDA runtime holds open.
+        source = "card"
+        smi_minor = card["minor_number"] or ""
+        require(len(minors) == 1 or smi_minor.isdigit(),
+                f"cannot tell the card's minor: open {minors}, "
+                f"nvidia-smi {smi_minor!r}")
+        minor = int(smi_minor) if smi_minor.isdigit() else minors[0]
+        require(not minors or minor in minors,
+                f"nvidia-smi minor {minor} is not a node this process "
+                f"holds open ({minors})")
+        raw_id = (card["pci.device_id"] or "").lower()
+        if raw_id.startswith("0x") and len(raw_id) == 10:
+            # 0x<device><vendor>
+            require(raw_id[6:] == "10de", f"vendor of {raw_id!r}")
+            device_id = raw_id[:6]
+        else:
+            # no PCI id from nvidia-smi here: a device id no name maps
+            # to, so the chip reads as a plain "gpu"
+            device_id = "0xffff"
+        sysfs_root, proc_root = card_tree(
+            os.path.join(tmp, "card-tree"), cuda_bdfs[0], device_id, minor)
+        backend = SysfsGpuBackend(sysfs_root=sysfs_root, dev_root=DEV_ROOT,
+                                  nvidia_proc_root=proc_root,
+                                  state_dir=state)
+    gpus, err = backend.find_tpus()
+    require(err is None and gpus, f"sysfs enumeration ({source}): {err}")
+    bdfs = {c.bdf: c for c in gpus}
+    require(cuda_bdfs[0] in bdfs,
+            f"cuda:0 at {cuda_bdfs[0]} is not a sysfs GPU ({sorted(bdfs)})")
+    chip0 = bdfs[cuda_bdfs[0]]
+    require(chip0.path.startswith(os.path.join(DEV_ROOT, "nvidia"))
+            and os.path.exists(chip0.path),
+            f"cuda:0's sysfs path {chip0.path!r} is no devfs node")
+    if "CUDA_VISIBLE_DEVICES" not in os.environ:
+        require(set(cuda_bdfs.values()) == set(bdfs),
+                f"CUDA sees {sorted(cuda_bdfs.values())}, sysfs {sorted(bdfs)}")
+    paths = [c.path for c in gpus]
+    finding(phase="sysfs_enumeration", source=source,
+            gpus=[{"bdf": c.bdf, "path": c.path, "name": c.name,
+                   "device_id": c.device_id,
+                   "cc_capable": c.is_cc_query_supported} for c in gpus],
+            nvswitches=len(backend.find_ici_switches()),
+            cuda0_bdf=cuda_bdfs[0], cuda0_path=chip0.path)
+
+    # (b) a read-only holder scan of the card's node
+    holders = find_holders(chip0.path)
+    finding(phase="sysfs_holders", path=chip0.path, count=len(holders),
+            commands=sorted({h.comm for h in holders}))
+
+    # (c) the flip cycle through the sysfs backend
+    t0 = time.perf_counter()
+    ctl = build_tpudevctl(tmp)
+    build_ctl_s = time.perf_counter() - t0
+    durations: Dict[str, List[float]] = {}
+    tracer = Tracer()
+    tracer.add_sink(lambda s: durations.setdefault(s.name, []).append(s.dur_s))
+    labels: List[str] = []
+    flips = []
+    # what the CLI subprocesses inherit too
+    extra = {"TPU_CC_DEVICE_BACKEND": "sysfs", "TPU_SYSFS_ROOT": sysfs_root,
+             "TPU_DEV_ROOT": DEV_ROOT, "TPU_NVIDIA_PROC_ROOT": proc_root,
+             **({"TPUDEVCTL": ctl} if ctl else {})}
+    with sysfs_env(extra), no_providers(), \
+            reset_writes() as (writes, resets):
+        # the card's real devfs node: never gated here
+        engine = ModeEngine(set_state_label=labels.append, backend=backend,
+                            evict_components=False, tracer=tracer,
+                            gate=DeviceGate(enabled=False),
+                            holder_check=HolderCheck(enabled=False))
+        for mode in SYSFS_MODES:
+            durations.clear()
+            t0 = time.perf_counter()
+            ok = engine.set_mode(mode)
+            flip_s = time.perf_counter() - t0
+            require(ok, f"sysfs set_mode({mode!r}) failed")
+            want = {p: {"cc": mode, "ici": "off"} for p in paths}
+            modes = engine.get_modes()
+            require({p: modes.get(p) for p in paths} == want,
+                    f"get_modes after {mode}: {modes}")
+            t0 = time.perf_counter()
+            got = port_cli(["get-cc-mode"], state)
+            inv = port_cli(["probe-devices", "--backend", "sysfs"], state)
+            cli_s = time.perf_counter() - t0
+            require({p: got.get(p) for p in paths} == want,
+                    f"get-cc-mode after {mode}: {got}")
+            listed = {d["path"]: d for d in inv["devices"]}
+            require(inv["error"] is None and all(
+                listed[p]["cc_mode"] == mode and listed[p]["ici_mode"] == "off"
+                for p in paths), f"probe-devices after {mode}: {inv}")
+            t0 = time.perf_counter()
+            for c in backend.find_tpus()[0]:
+                require(c.verify_independent("cc") == mode
+                        and c.verify_independent("ici") == "off",
+                        f"verify_independent of {c.path} after {mode}")
+            verify_s = time.perf_counter() - t0
+            flip = {"mode": mode, "flip_s": flip_s, "cli_s": cli_s,
+                    "verify_independent_s": verify_s,
+                    "verify_route": "tpudevctl" if ctl else "in-process",
+                    **{f"{ph}_s": sum(durations.get(ph, []))
+                       for ph in FLIP_PHASES}}
+            finding(phase="sysfs_flip", **flip)
+            flips.append(flip)
+        t0 = time.perf_counter()
+        report = port_cli(["doctor", "--offline"], state)
+        doctor_s = time.perf_counter() - t0
+    require(labels == list(SYSFS_MODES), f"state labels {labels}")
+    require(resets[0] >= len(paths) * len(SYSFS_MODES),
+            f"{resets[0]} resets for {len(paths)} GPUs and "
+            f"{len(SYSFS_MODES)} flips")
+    sysfs_writes = [w for w in writes
+                    if w.startswith("/sys") or w.startswith(sysfs_root)]
+    require(not sysfs_writes, f"a reset wrote under sysfs: {sysfs_writes}")
+    finding(phase="sysfs_doctor", ok=report.get("ok"),
+            checks=report.get("checks"), seconds=doctor_s)
+    require(report.get("ok") is True, f"doctor --offline: {report}")
+    require(any(chip0.path in c.get("detail", "") for c in report["checks"]),
+            f"doctor ran no check on {chip0.path}")
+    nodes_after = dev_nodes()
+    require(nodes_after == nodes_before,
+            f"/dev/nvidia* changed: {nodes_before} -> {nodes_after}")
+
+    # (d) the card still answers: K5 through CudaBackend's probe, and the
+    # same kernel held bit-equal to its plain version
+    reset_launches()
+    probe_s = cuda.probe_device(0)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    require(launches["probe_add_one"] == 1,
+            f"{launches['probe_add_one']} probe_add_one launches for one probe")
+    one = torch.tensor(1.0, dtype=torch.float32, device=DEVICE)
+    got, want = probe_add_one(one), probe_add_one_reference(one)
+    torch.cuda.synchronize()
+    require(float(got) == 2.0 and float_err(got, want) == 0.0,
+            f"probe_add_one after the cycle: {float(got)}")
+    out = {"source": source, "gpus": len(gpus), "paths": paths,
+           "cuda0_bdf": cuda_bdfs[0], "holders": len(holders),
+           "enumerate_s": enumerate_s, "build_tpudevctl_s": build_ctl_s,
+           "flips": flips, "doctor_s": doctor_s, "probe_s": probe_s,
+           "reset_writes": len(writes), "sysfs_writes": 0,
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    finding(phase="sysfs", **out)
+    return out, launches
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3995,6 +4376,8 @@ def run() -> None:
     controller_launches, phase10 = controller_path()
     shard_launches = shard_path(phase10)
     simlab_launches = simlab_path()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        _sysfs, sysfs_launches = sysfs_phase(tmp, smi)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4008,6 +4391,7 @@ def run() -> None:
             "controller_path_launches": controller_launches[name],
             "shard_path_launches": shard_launches[name],
             "simlab_path_launches": simlab_launches[name],
+            "sysfs_path_launches": sysfs_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in measured[name]),
             "max_abs_diff": max(r["max_abs_err"] for r in measured[name]),
             "shape": main["shape"], "ms": main["ms"],
@@ -4054,6 +4438,16 @@ def run_simlab() -> None:
     print(smi, flush=True)
 
 
+def run_sysfs() -> None:
+    """``--sysfs``: phases 1 and 13 alone, for iterating on the sysfs
+    backend."""
+    set_mesh(1)
+    smi, _lib, _rate, _floor = setup()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        sysfs_phase(tmp, smi)
+    print(smi, flush=True)
+
+
 def run_multi_card() -> None:
     """``--multi-card``: phase 8 (e) alone, on every visible card."""
     from tpu_cc_manager_torch.kernels import _build
@@ -4070,13 +4464,15 @@ def run_multi_card() -> None:
 
 
 MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
-         ("--simlab",): run_simlab, ("--multi-card",): run_multi_card}
+         ("--simlab",): run_simlab, ("--sysfs",): run_sysfs,
+         ("--multi-card",): run_multi_card}
 
 
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
         print("usage: python3 chip_smoke.py "
-              "[--k1 | --k2k3 | --simlab | --multi-card]", file=sys.stderr)
+              "[--k1 | --k2k3 | --simlab | --sysfs | --multi-card]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

@@ -8,14 +8,15 @@ with, the Events posted and every value the write batcher published must
 be equal on the two sides, but for the part the case in ``RACY``
 leaves to timing.
 
-One named edit adapts the reference's text to the port: the SIGTERM case
+Two named edits adapt the reference's text to the port: the SIGTERM case
+builds the PCI twin of its accel tree (``tests/torch_pci_tree.py``) and
 starts the port's entry point (``python -m tpu_cc_manager_torch``) over
-the port's device layer on the CPU (``TPU_CC_TORCH_DEVICE=cpu``; the
-reference's sysfs tree has no counterpart in the port). Its evidence
-names each side's own device (the reference's ``<tmp>/dev/accel0``, the
-port's CPU chip), so there each device is compared by its index, mode
-and ICI state, and the statefile digest, a hash over the device paths,
-is not compared.
+the port's sysfs backend (``TPU_CC_DEVICE_BACKEND=sysfs``,
+``device/gpu.py``). Its evidence names each side's own device,
+``<tmp>/dev/accel0`` or ``<tmp>/dev/nvidia0``, which differ by name only,
+so there a device's path, name and ``device_id`` are compared by index,
+and the statefile digest, a hash over the device paths, is compared
+within each side (``torch_pci_tree.by_index``).
 
 Beyond those cases, the port's agent runs its reconcile cases over
 ``CudaBackend(device="cpu", cpu_chips=8)``, where K5's plain version
@@ -37,20 +38,32 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 import test_agent  # noqa: E402
+import torch_pci_tree as pci  # noqa: E402
 from torch_mirror import (  # noqa: E402
     PORT, REF, both, cases, mask, port_twin, without_doctor,
 )
 
 VERSIONS = f"jax {jax.__version__}, torch {torch.__version__}"
-EVIDENCE = "tpu.google.com/cc.evidence"
 MODS = (test_agent, port_twin("test_agent", edits=[
-    ("the port's entry point over its CPU device layer",
+    ("the PCI twin in place of the accel tree",
+     '''    sysfs = tmp_path / "sysfs" / "accel0" / "device"
+    sysfs.mkdir(parents=True)
+    (sysfs / "vendor").write_text("0x1ae0\\n")
+    (sysfs / "device").write_text("0x0063\\n")
+    (tmp_path / "dev").mkdir()
+    (tmp_path / "dev" / "accel0").write_text("")
+''', '''    from torch_pci_tree import make_pci_tree, nvidia_proc_root
+
+    sysfs, _dev = make_pci_tree(tmp_path, n=1)
+'''),
+    ("the port's entry point over its sysfs backend",
      '''            HEALTH_PORT="0",
         )
         proc = subprocess.Popen(
             [sys.executable, "-m", "tpu_cc_manager"], env=env, cwd=repo,''',
      '''            HEALTH_PORT="0",
-            TPU_CC_TORCH_DEVICE="cpu",
+            TPU_CC_DEVICE_BACKEND="sysfs",
+            TPU_NVIDIA_PROC_ROOT=nvidia_proc_root(sysfs),
         )
         proc = subprocess.Popen(
             [sys.executable, "-m", "tpu_cc_manager_torch"], env=env, cwd=repo,'''),
@@ -85,21 +98,15 @@ RACY = {
 
 def _devices_by_index(evidence: dict) -> dict:
     """The evidence document with each device named by its index: the
-    reference's chips are ``/dev/accel<i>`` (the SIGTERM case's sysfs
-    tree) or fake chips, the port's CPU chips ``torch:cpu:<i>``."""
+    reference's chips are fake chips, the port's CPU chips
+    ``torch:cpu:<i>``."""
     return {"node": evidence["node"], "version": evidence["version"],
             "devices": [{"index": i, "cc": d.get("cc"), "ici": d.get("ici")}
                         for i, d in enumerate(evidence["devices"])]}
 
 
 def _view(name, side, snapshot):
-    if name == SIGTERM:
-        for kube in snapshot["kubes"]:
-            for node in kube["nodes"].values():
-                ann = node["annotations"]
-                if EVIDENCE in ann:
-                    ann[EVIDENCE] = _devices_by_index(ann[EVIDENCE])
-    return snapshot
+    return pci.by_index(snapshot) if name == SIGTERM else snapshot
 
 
 @pytest.mark.parametrize("name,params", cases(test_agent))

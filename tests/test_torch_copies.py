@@ -36,7 +36,9 @@ COPIES = (
 #: module -> [(name, reference block, port block)]
 EXCEPTIONS = {
     "device/base.py": [
-        ("registry: cuda is the default and replaces jax; sysfs waits", '''\
+        ("registry: cuda replaces jax and stays the default, because the "
+         "port's entry points and its probe kernel ride the CUDA backend's "
+         "flips; sysfs builds the PCI counterpart (device.gpu)", '''\
     - ``sysfs`` (default) — host accel sysfs tree scan (device.tpu);
     - ``jax``             — live PJRT/libtpu enumeration (device.jaxdev),
       the path that touches the real chip;
@@ -63,11 +65,13 @@ EXCEPTIONS = {
 ''', '''\
     - ``cuda`` (default) — live CUDA enumeration through torch
       (device.cudadev), the path that touches the real card;
+    - ``sysfs``          — host PCI sysfs scan for the NVIDIA functions
+      (device.gpu), the reference's default backend;
     - ``fake``           — in-memory fake (device.fake), for kind-style
       dry runs where the DaemonSet has no device plumbing at all.
 
-    ``sysfs`` (the reference's accel sysfs scan) is not ported yet and
-    raises a DeviceError naming the ROADMAP item that ports it.
+    The default is ``cuda``, not the reference's ``sysfs``: the port's
+    entry points and its probe kernel ride the CUDA backend's flips.
     """
     name = os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda").strip().lower()
     if name == "cuda":
@@ -78,21 +82,22 @@ EXCEPTIONS = {
         from tpu_cc_manager_torch.device.fake import fake_backend
 
         return fake_backend()
-    if name == "sysfs":
+    if name != "sysfs":
         raise DeviceError(
-            "TPU_CC_DEVICE_BACKEND=sysfs is not ported yet "
-            "(ROADMAP Queue 1 item 7, the sysfs backend); use cuda | fake"
+            f"unknown TPU_CC_DEVICE_BACKEND {name!r}: "
+            "expected cuda | sysfs | fake"
         )
-    raise DeviceError(
-        f"unknown TPU_CC_DEVICE_BACKEND {name!r}: expected cuda | fake"
-    )
+    from tpu_cc_manager_torch.device.gpu import SysfsGpuBackend
+
+    return SysfsGpuBackend()
 '''),
-        ("registry: get_backend's default", '''\
+        ("registry: get_backend's default is cuda, for the same reason", '''\
     (sysfs unless overridden)."""''', '''\
     (cuda unless overridden)."""'''),
     ],
     "config.py": [
-        ("probe-devices --backend takes cuda | fake, default cuda", '''\
+        ("probe-devices --backend takes cuda | sysfs | fake; the default "
+         "is cuda, the live card, as jax is the reference's live chip", '''\
              "Default backend: jax — the live TPU runtime, i.e. hardware "
              "truth; pass --backend sysfs to inspect the surface a "
              "sysfs-backend agent actually manages.",
@@ -104,11 +109,12 @@ EXCEPTIONS = {
         help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
              "default jax)",''', '''\
              "Default backend: cuda — the live CUDA devices, i.e. hardware "
-             "truth; pass --backend fake to inspect the in-memory fake.",
+             "truth; pass --backend sysfs to inspect the surface a "
+             "sysfs-backend agent actually manages.",
     )
     probe.add_argument(
         "--backend",
-        choices=("cuda", "fake"),
+        choices=("cuda", "sysfs", "fake"),
         default=os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda"),
         help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
              "default cuda)",'''),

@@ -23,6 +23,7 @@ from tpu_cc_manager_torch import plan as tplan  # noqa: E402
 from tpu_cc_manager_torch.device import base as device_base  # noqa: E402
 from tpu_cc_manager_torch.device.base import DeviceError, set_backend  # noqa: E402
 from tpu_cc_manager_torch.device.cudadev import CudaBackend  # noqa: E402
+from tpu_cc_manager_torch.device.gpu import SysfsGpuBackend  # noqa: E402
 from tpu_cc_manager_torch.device.statefile import ModeStateStore  # noqa: E402
 from tpu_cc_manager_torch.engine import ModeEngine  # noqa: E402
 from tpu_cc_manager_torch.kernels import LAUNCHES  # noqa: E402
@@ -196,8 +197,7 @@ def test_backend_registry_env_selection(tmp_path, monkeypatch):
     assert isinstance(device_base.get_backend(), CudaBackend)
     monkeypatch.setenv("TPU_CC_DEVICE_BACKEND", "sysfs")
     device_base.set_backend(None)
-    with pytest.raises(DeviceError, match="ROADMAP"):
-        device_base.get_backend()
+    assert isinstance(device_base.get_backend(), SysfsGpuBackend)
     monkeypatch.setenv("TPU_CC_DEVICE_BACKEND", "bogus")
     device_base.set_backend(None)
     with pytest.raises(DeviceError):

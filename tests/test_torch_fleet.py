@@ -265,11 +265,13 @@ def test_doctor_aggregation_and_policy_summaries():
 def test_doctor_publish_round_trip(tmp_path, monkeypatch):
     """doctor --publish -> fleet aggregation through the annotation
     channel, each package's own doctor publishing onto its own FakeKube:
-    the reference's over its sysfs backend, the port's over
-    ``CudaBackend`` on the CPU (the sysfs backend is not ported)."""
+    the reference's over its sysfs backend on an accel tree, the port's
+    over its sysfs backend on the PCI twin of that tree
+    (``tests/torch_pci_tree.py``). The fleet reports name nodes, not
+    devices, so they are compared whole."""
     from test_doctor import _backend, _flip
+    from torch_pci_tree import make_pci_tree, twin_backend
 
-    from tpu_cc_manager_torch.device.cudadev import CudaBackend
     from tpu_cc_manager_torch.engine import ModeEngine
 
     def case(side):
@@ -277,8 +279,8 @@ def test_doctor_publish_round_trip(tmp_path, monkeypatch):
             backend = _backend(tmp_path, monkeypatch)
             _flip(backend, "on")
         else:
-            backend = CudaBackend(state_dir=str(tmp_path / "port-state"),
-                                  device="cpu")
+            sysfs, dev = make_pci_tree(tmp_path / "port", n=1)
+            backend = twin_backend(sysfs, dev, str(tmp_path / "port-state"))
             ModeEngine(set_state_label=lambda v: None, backend=backend,
                        evict_components=False).set_mode("on")
         kube = side.fake.FakeKube()

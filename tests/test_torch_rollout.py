@@ -10,15 +10,15 @@ one (``TPU_CC_PLANNER_MESH``); the port plans on the CPU
 (``TPU_CC_TORCH_DEVICE=cpu``), where its kernels run their plain
 versions.
 
-Named edits adapt the reference's text where the port lacks a piece:
-the two full-stack cases run the port's agents (the port twin of
-tests/test_multinode.py's ``SimNode``), and ``_statefile_backend``
-builds the port's ``CudaBackend(device="cpu")`` over the same scratch
-mode store, the sysfs backend not being ported (ROADMAP Queue 1 item
-7). The evidence of those cases names each side's own device (the
-reference's sysfs chip, the port's CPU chip), so there each device is
-compared by its index, mode and ICI state, and the statefile digest, a
-hash over the device paths, is not compared.
+Named edits adapt the reference's text to the port: the two full-stack
+cases run the port's agents (the port twin of tests/test_multinode.py's
+``SimNode``), and ``_statefile_backend`` builds the PCI twin of its accel
+tree (``tests/torch_pci_tree.py``) and the port's sysfs backend
+(``device/gpu.py``) over it. The evidence of those cases names each
+side's own device, ``<tmp>/dev/accel0`` or ``<tmp>/dev/nvidia0``, which
+differ by name only, so there a device's path, name and ``device_id``
+are compared by index, and the statefile digest, a hash over the device
+paths, is compared within each side (``torch_pci_tree.by_index``).
 
 Beyond the cases: the preflight's ``analyze_fleet`` over seeded fleets
 of up to 3 000 nodes must give the reference's report exactly, at 1 and
@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 import test_rollout  # noqa: E402
+import torch_pci_tree as pci  # noqa: E402
 import tpu_cc_manager.plan as jplan  # noqa: E402
 import tpu_cc_manager_torch.rollout as trollout  # noqa: E402
 from torch_mirror import (  # noqa: E402
@@ -49,14 +50,19 @@ MODS = (test_rollout, port_twin("test_rollout", edits=[
     ("the port's agents in the full-stack cases",
      "from tests.test_multinode import SimNode, _wait",
      "from test_multinode__port import SimNode, _wait", 2),
-    ("the port's CudaBackend on the CPU in place of the sysfs backend",
+    ("the port's sysfs backend over the PCI twin tree",
      "    from tpu_cc_manager_torch.device.tpu import SysfsTpuBackend\n",
-     "    from tpu_cc_manager_torch.device.cudadev import CudaBackend\n"),
-    ("... over the same scratch mode store",
-     '''    return SysfsTpuBackend(sysfs_root=str(sysfs),
-                           dev_root=str(tmp_path / "dev"),
-                           state_dir=str(tmp_path / "state"))''',
-     '''    return CudaBackend(state_dir=str(tmp_path / "state"), device="cpu")'''),
+     "    from torch_pci_tree import make_pci_tree\n"
+     "    from torch_pci_tree import twin_backend as SysfsTpuBackend\n"),
+    ("the PCI twin in place of the accel tree", '''    sysfs = tmp_path / "sysfs"
+    devd = sysfs / "accel0" / "device"
+    devd.mkdir(parents=True)
+    (devd / "vendor").write_text("0x1ae0\\n")
+    (devd / "device").write_text("0x0063\\n")
+    (tmp_path / "dev").mkdir()
+    (tmp_path / "dev" / "accel0").write_text("")
+''', '''    sysfs, _dev = make_pci_tree(tmp_path, n=1)
+'''),
 ]))
 
 #: the cases that never reach the planner (they fail before the
@@ -75,32 +81,16 @@ OFF_PLANNER = frozenset({
 })
 PLANNER = frozenset(p.values[0] for p in cases(test_rollout)) - OFF_PLANNER
 
-EVIDENCE = "tpu.google.com/cc.evidence"
 #: the cases whose evidence comes from ``_statefile_backend``: each side's
-#: own device (the reference's sysfs chip, the port's CPU chip)
+#: own sysfs backend over its own tree
 OWN_DEVICE = frozenset(
     name for name, fn in vars(test_rollout).items()
     if name.startswith("test_") and inspect.isfunction(fn)
     and "_statefile_backend(" in inspect.getsource(fn))
 
 
-def _devices_by_index(evidence: dict) -> dict:
-    """The evidence document with each device named by its index, mode
-    and ICI state: the devices themselves differ by side (path, name,
-    id), and so does the statefile digest, a hash over their paths."""
-    return {"node": evidence["node"], "version": evidence["version"],
-            "devices": [{"index": i, "cc": d.get("cc"), "ici": d.get("ici")}
-                        for i, d in enumerate(evidence["devices"])]}
-
-
 def _view(name, side, snapshot):
-    if name in OWN_DEVICE:
-        for kube in snapshot["kubes"]:
-            for node in kube["nodes"].values():
-                ann = node["annotations"]
-                if EVIDENCE in ann:
-                    ann[EVIDENCE] = _devices_by_index(ann[EVIDENCE])
-    return snapshot
+    return pci.by_index(snapshot) if name in OWN_DEVICE else snapshot
 
 
 #: cases whose threads race the case's own end, so that the reference

@@ -30,6 +30,14 @@ recorded on each side and must be equal:
 - for every SLO observer (``FleetObserver``): its alert log and the
   problems of its last merged exposition (``aggregation_problems``).
 
+A mirror may ask for more (``both``'s ``calls``): the calls of the named
+functions the case makes from its own thread, each with what it
+returned (or the exception it raised) and, for a method of an object
+with a tracer (``ModeEngine.set_mode``), the names of the spans that
+tracer finished during the call; and every statefile
+(``<state_dir>/<device-key>/{cc,ici}.{staged,effective}``) under the
+case's scratch directory.
+
 Before the snapshot, every agent the case built (``CCManagerAgent``)
 delivers what it has queued (``flush_events``): its Events are posted by
 a worker thread that may still hold them when the case's last assertion
@@ -42,7 +50,7 @@ fields, the slice heartbeat's clock reading, the rollout record's
 durations an Event message carries, an SLO alert's ``at``, a failover's
 ``handoff_s`` and an evacuation's ``cordon_s``, both seconds on the host
 clock, and a lease's ``acquireTime`` and ``renewTime``), uuids, the random suffixes of
-one-shot and policy Event names and the random ``id`` and ``owner`` of
+one-shot, maintenance and policy Event names and the random ``id`` and ``owner`` of
 a document that holds a clock reading (a rollout record), trace ids
 (``traceparent`` values), and the evidence digests computed over a
 document that holds a timestamp (each side's digest is checked against
@@ -57,6 +65,7 @@ import importlib
 import inspect
 import itertools
 import json
+import os
 import pathlib
 import re
 import socket
@@ -79,7 +88,7 @@ _UUID = re.compile(
 #: per-tracer prefix and a counter, ``trace.Tracer._next_id``)
 _TRACEPARENT = re.compile(r"\b00-[0-9a-f]{9,32}-[0-9a-f]{9,16}-[0-9a-f]{2}\b")
 _DURATION = re.compile(r"\bin \d+\.\d+s\b")
-_ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile)\.|\.ccpolicy\.)[0-9a-f]+")
+_ONESHOT = re.compile(r"(\.cc-(?:oneshot|reconcile|maint)\.|\.ccpolicy\.)[0-9a-f]+")
 _TS_KEYS = frozenset({"firstTimestamp", "lastTimestamp", "timestamp", "at",
                       "eventTime", "creationTimestamp",
                       # the rollout record's clock readings (epoch seconds)
@@ -190,8 +199,29 @@ def cases(mod):
     return out
 
 
+#: a statefile of the mode store (``device/statefile.py``)
+_STATEFILE = re.compile(r"^(?:cc|ici)\.(?:staged|effective)$")
+
+
+def _statefiles(tmp: str):
+    """Every statefile under ``tmp``: its path under ``tmp`` (the
+    device key's copy of ``tmp`` named ``<tmp>``) -> its contents."""
+    out = {}
+    key_tmp = tmp.replace("/", "_")
+    for root, _dirs, files in os.walk(tmp):
+        for f in files:
+            if _STATEFILE.match(f):
+                path = os.path.join(root, f)
+                rel = os.path.relpath(path, tmp).replace(key_tmp, "<tmp>")
+                with open(path) as fh:
+                    out[rel] = fh.read()
+    return dict(sorted(out.items()))
+
+
 class _Recorder:
     def __init__(self):
+        #: the calls recorded for ``both``'s ``calls``, or None
+        self.calls = None
         self.kubes = []
         self.batcher_writes = []
         self.admission = []
@@ -207,7 +237,10 @@ class _Recorder:
             assert agent.flush_events(), "an agent's Events never drained"
         reports = sorted(self.doctor_reports, key=lambda r: json.dumps(
             r["out"].get("node") if isinstance(r["out"], dict) else None))
+        extra = {} if self.calls is None else {
+            "calls": mask(self.calls), "statefiles": _statefiles(tmp)}
         return _untmp({
+            **extra,
             "kubes": [_kube_view(k) for k in self.kubes],
             "batcher_writes": _publish_history(self.batcher_writes),
             "admission": mask(self.admission),
@@ -402,11 +435,57 @@ def without_doctor(snapshot):
     return out
 
 
+def _record_calls(side: Side, mp: pytest.MonkeyPatch, testmod, calls,
+                  into: list) -> None:
+    """Wrap each ``"module:function"`` or ``"module:Class.method"`` of
+    ``calls`` on ``side`` (and the test module's own name for a
+    function, if it imported one) to record, in ``into``, the calls made
+    from this thread."""
+    case_thread = threading.current_thread()
+    for spec in calls:
+        modname, _, attr = spec.partition(":")
+        module = side.module(modname)
+        owner_name, _, fname = attr.rpartition(".")
+        owner = getattr(module, owner_name) if owner_name else module
+        real = getattr(owner, fname)
+
+        def wrapped(*a, _real=real, _spec=spec, **kw):
+            if threading.current_thread() is not case_thread:
+                return _real(*a, **kw)
+            entry = {"fn": _spec}
+            into.append(entry)
+            tracer = getattr(a[0], "_tracer", None) if a else None
+            spans = []
+            sink = (lambda span: spans.append(span.name))
+            if tracer is not None:
+                tracer.add_sink(sink)
+            try:
+                out = _real(*a, **kw)
+            except BaseException as e:
+                entry["raised"] = type(e).__name__
+                raise
+            finally:
+                if tracer is not None:
+                    tracer.remove_sink(sink)
+                    # flips of several devices finish their spans as
+                    # their threads run
+                    entry["spans"] = sorted(spans)
+            entry["out"] = copy.deepcopy(out)
+            return out
+
+        mp.setattr(owner, fname, wrapped)
+        if not owner_name and testmod.__dict__.get(fname) is real:
+            mp.setattr(testmod, fname, wrapped)
+
+
 @contextlib.contextmanager
-def recording(side: Side, mp: pytest.MonkeyPatch, testmod):
+def recording(side: Side, mp: pytest.MonkeyPatch, testmod, calls=None):
     """Record, on ``side``, what the case leaves behind (see the module
     docstring)."""
     rec = _Recorder()
+    if calls is not None:
+        rec.calls = []
+        _record_calls(side, mp, testmod, calls, rec.calls)
     fake = side.module("k8s.fake")
     batch = side.module("k8s.batch")
     webhook = side.module("webhook")
@@ -471,32 +550,46 @@ def recording(side: Side, mp: pytest.MonkeyPatch, testmod):
 
 
 def run_case(side: Side, testmod, name: str, params: dict, request,
-             tmp_path: pathlib.Path):
+             tmp_path: pathlib.Path, calls=None):
     """Run ``testmod.<name>`` on ``side`` with the fixtures it asks for;
-    return what it left behind."""
+    return what it left behind (with ``calls``, the calls and statefiles
+    too)."""
     fn = getattr(testmod, name)
     side_tmp = tmp_path / side.name
     side_tmp.mkdir()
     side.reset()
     try:
         with pytest.MonkeyPatch.context() as mp, \
-                recording(side, mp, testmod) as rec:
-            kwargs = {}
-            for arg in inspect.signature(fn).parameters:
+                recording(side, mp, testmod, calls) as rec, \
+                contextlib.ExitStack() as teardowns:
+            made = {}
+
+            def resolve(arg):
                 if arg in params:
-                    kwargs[arg] = params[arg]
-                elif arg == "tmp_path":
-                    kwargs[arg] = side_tmp
-                elif arg == "monkeypatch":
-                    kwargs[arg] = mp
-                elif hasattr(getattr(testmod, arg, None),
-                             "_get_wrapped_function"):
-                    # a fixture of the test module itself: each side
-                    # builds its own
-                    kwargs[arg] = getattr(
-                        testmod, arg)._get_wrapped_function()()
-                else:
-                    kwargs[arg] = request.getfixturevalue(arg)
+                    return params[arg]
+                if arg == "tmp_path":
+                    return side_tmp
+                if arg == "monkeypatch":
+                    return mp
+                fixture = getattr(testmod, arg, None)
+                if not hasattr(fixture, "_get_wrapped_function"):
+                    return request.getfixturevalue(arg)
+                # a fixture of the test module itself: each side builds
+                # its own, with the fixtures it asks for, and tears it
+                # down (the code after its yield) before the side's
+                # monkeypatch is undone
+                if arg not in made:
+                    build = fixture._get_wrapped_function()
+                    value = build(**{a: resolve(a) for a in
+                                     inspect.signature(build).parameters})
+                    if inspect.isgenerator(value):
+                        gen, value = value, next(value)
+                        teardowns.callback(next, gen, None)
+                    made[arg] = value
+                return made[arg]
+
+            kwargs = {arg: resolve(arg)
+                      for arg in inspect.signature(fn).parameters}
             for fixture in ("capsys", "capfd"):
                 if fixture in kwargs:
                     # what the other side printed and its case left
@@ -533,16 +626,17 @@ def _first_difference(want, got, path="$"):
 
 
 def both(testmods, name: str, params: dict, request, tmp_path, versions,
-         racy=None, view=None):
+         racy=None, view=None, calls=None):
     """Run case ``name`` on the reference module and on its port twin;
     what the two leave behind must be equal, as ``view(name, side,
     snapshot)`` shows it when a view is given. ``racy`` maps a case whose
     threads race its own end to ``(part, why)``: only ``part(snapshot)``
-    is compared there (``settled`` or ``without_doctor``). Returns the
-    port's."""
+    is compared there (``settled`` or ``without_doctor``). ``calls``
+    names the calls to record too (see the module docstring). Returns
+    the port's."""
     ref_mod, port_mod = testmods
-    want = run_case(REF, ref_mod, name, params, request, tmp_path)
-    got = run_case(PORT, port_mod, name, params, request, tmp_path)
+    want = run_case(REF, ref_mod, name, params, request, tmp_path, calls)
+    got = run_case(PORT, port_mod, name, params, request, tmp_path, calls)
     if view is not None:
         want, got = view(name, REF, want), view(name, PORT, got)
     if racy and name in racy:

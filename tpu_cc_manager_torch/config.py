@@ -260,11 +260,12 @@ def build_parser() -> argparse.ArgumentParser:
         "probe-devices",
         help="print the device inventory as JSON (no NODE_NAME needed). "
              "Default backend: cuda — the live CUDA devices, i.e. hardware "
-             "truth; pass --backend fake to inspect the in-memory fake.",
+             "truth; pass --backend sysfs to inspect the surface a "
+             "sysfs-backend agent actually manages.",
     )
     probe.add_argument(
         "--backend",
-        choices=("cuda", "fake"),
+        choices=("cuda", "sysfs", "fake"),
         default=os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda"),
         help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
              "default cuda)",

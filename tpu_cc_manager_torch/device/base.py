@@ -134,11 +134,13 @@ def _default_backend() -> Backend:
 
     - ``cuda`` (default) — live CUDA enumeration through torch
       (device.cudadev), the path that touches the real card;
+    - ``sysfs``          — host PCI sysfs scan for the NVIDIA functions
+      (device.gpu), the reference's default backend;
     - ``fake``           — in-memory fake (device.fake), for kind-style
       dry runs where the DaemonSet has no device plumbing at all.
 
-    ``sysfs`` (the reference's accel sysfs scan) is not ported yet and
-    raises a DeviceError naming the ROADMAP item that ports it.
+    The default is ``cuda``, not the reference's ``sysfs``: the port's
+    entry points and its probe kernel ride the CUDA backend's flips.
     """
     name = os.environ.get("TPU_CC_DEVICE_BACKEND", "cuda").strip().lower()
     if name == "cuda":
@@ -149,14 +151,14 @@ def _default_backend() -> Backend:
         from tpu_cc_manager_torch.device.fake import fake_backend
 
         return fake_backend()
-    if name == "sysfs":
+    if name != "sysfs":
         raise DeviceError(
-            "TPU_CC_DEVICE_BACKEND=sysfs is not ported yet "
-            "(ROADMAP Queue 1 item 7, the sysfs backend); use cuda | fake"
+            f"unknown TPU_CC_DEVICE_BACKEND {name!r}: "
+            "expected cuda | sysfs | fake"
         )
-    raise DeviceError(
-        f"unknown TPU_CC_DEVICE_BACKEND {name!r}: expected cuda | fake"
-    )
+    from tpu_cc_manager_torch.device.gpu import SysfsGpuBackend
+
+    return SysfsGpuBackend()
 
 
 def get_backend() -> Backend:
