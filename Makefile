@@ -42,6 +42,7 @@ lint:
 	@if command -v ruff >/dev/null 2>&1; then ruff check .; \
 	else echo "lint: ruff not installed; skipping (pip install -r requirements-dev.txt)"; fi
 	$(PYTHON) -m tpu_cc_manager.analysis
+	$(PYTHON) -m tpu_cc_manager_torch.analysis
 
 # Changed-files analyzer pass (ISSUE 17): ccaudit reporting only on
 # the .py files your branch touches vs origin/main (falls back to HEAD

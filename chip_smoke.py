@@ -2,7 +2,7 @@
 """Drive the PyTorch port (the fleet planner, the node's flip, the node
 agent, the rollout, the policy controller, the sharded control plane, the
 scenario lab and the sysfs device backend) on one NVIDIA GPU and check
-it.
+it, then run the port's analyzer on the card's machine.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device, ``nvcc`` and the repository's ``tpu_cc_manager_torch`` package; it
@@ -185,6 +185,19 @@ exits non-zero without them, and whenever any phase fails.
    No reset opened a file under sysfs for writing, ``/dev/nvidia*`` keep
    their mode bits, and K5 through ``CudaBackend.probe_device(0)`` (one
    launch) still answers, held bit-equal to its plain version.
+14. The port's analyzer (``python -m tpu_cc_manager_torch.analysis``) in
+   subprocesses from the repository root, over a copy of the package,
+   ``deployments/`` and ``scenarios/`` (the default surface, manifests
+   and the SLO cross-check on): exit 0 with no new finding and no stale
+   baseline entry, cold and again warm with ``--cache``; then, with the
+   ``with _DISPATCH_LOCK:`` of ``plan._eval_fn``'s ``run`` turned into
+   ``if True:`` in the copy, exit 1 with error-level
+   ``unserialized-dispatch`` results in its SARIF. The kernel-launch
+   pass's inventory (``analysis/launchflow.py``) covers every kernel
+   phases 1-13 launched, and every launch site it found outside
+   ``kernels/`` holds the lock or a pragma (the ``analysis`` line:
+   wall seconds, modules scanned, pragma'd sites per family, the
+   inventory, the card's name and power limit). It launches no kernel.
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -194,6 +207,8 @@ and K1's route cross (the ``k3_crossover`` line), to compare two
 versions of K2 and K3 within one chip call.
 ``python3 chip_smoke.py --simlab`` runs phases 1 and 12 alone.
 ``python3 chip_smoke.py --sysfs`` runs phases 1 and 13 alone.
+``python3 chip_smoke.py --analysis`` runs phase 14 alone, its inventory
+held to every launch counter.
 ``python3 chip_smoke.py --multi-card`` runs phase 8 (e) alone, on every
 visible card (it fails with one). Phases 1-7 run on one shard
 (``TPU_CC_PLANNER_MESH=1``). Launch counts
@@ -202,8 +217,9 @@ again just before phase 7 and read just after it, again just before
 phase 8's (b) and read just after its (d), again just before phase 9
 and read just after it, again just before phase 10 and read just after
 it, again just before phase 11 and read just after it, again just
-before phase 12 and read just after it, and again just before phase
-13's probe (d) and read just after it: each kernel
+before phase 12 and read just after it, again just before phase
+13's probe (d) and read just after it, and again just before phase 14,
+which must launch none: each kernel
 must have been launched on its path (on phase 9's, K5 and K1 or K3; on
 phase 10's, K1, K2 and K5; on phase 11's, K1 from every shard and
 region shard, K2 and K5; on phase 12's, K1 and K2; on phase 13's, K5
@@ -4250,6 +4266,133 @@ def sysfs_phase(tmp: str, smi: str) -> Tuple[dict, Dict[str, int]]:
 
 
 
+# ------------------------------------------ phase 14: the port's analyzer
+
+
+#: phase 14's scan: each subprocess's time limit
+ANALYSIS_TIMEOUT_S = 300
+#: what the scan reads besides the package: the manifests and scenarios
+#: its cross-check holds to the protocol, and the SLO document
+ANALYSIS_TREES = ("tpu_cc_manager_torch", "deployments", "scenarios")
+
+
+def unlock_eval_fn(source: str) -> str:
+    """``plan.py`` with the ``with _DISPATCH_LOCK:`` of ``_eval_fn``'s
+    ``run`` turned into ``if True:`` (every line stays where it was)."""
+    import ast
+
+    tree = ast.parse(source)
+    lines = [
+        w.lineno for f in ast.walk(tree)
+        if isinstance(f, ast.FunctionDef) and f.name == "_eval_fn"
+        for w in ast.walk(f) if isinstance(w, ast.With)
+        and ast.unparse(w.items[0].context_expr) == "_DISPATCH_LOCK"]
+    require(len(lines) == 1, f"_eval_fn holds _DISPATCH_LOCK at {lines}")
+    text = source.splitlines(keepends=True)
+    text[lines[0] - 1] = text[lines[0] - 1].replace(
+        "with _DISPATCH_LOCK:", "if True:")
+    return "".join(text)
+
+
+def ccaudit(root: str, *args: str) -> Tuple[float, int, str]:
+    """``python -m tpu_cc_manager_torch.analysis --root <root> <args>``
+    from the repository root: wall seconds, exit code, stdout."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_cc_manager_torch.analysis", "--root",
+         root, *args], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=ANALYSIS_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    require(proc.returncode in (0, 1),
+            f"ccaudit {' '.join(args)} exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    return wall, proc.returncode, proc.stdout
+
+
+def analysis_phase(smi: str, launched: Dict[str, int]) -> dict:
+    """Phase 14: the port's analyzer on the card's machine, over a copy of
+    the checkout's package, manifests and scenarios (its fact cache lives
+    in the copy): the default-surface scan exits 0 with no new finding
+    and no stale baseline entry, cold and then warm through ``--cache``;
+    with ``_eval_fn``'s lock removed from the copy's ``plan.py`` it fires
+    ``unserialized-dispatch`` at error level; the kernel-launch pass's
+    inventory covers every kernel ``launched`` counts, and every launch
+    site it found outside ``kernels/`` holds the lock or a pragma."""
+    import shutil
+
+    from tpu_cc_manager_torch.analysis import core, launchflow
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        for name in ANALYSIS_TREES:
+            shutil.copytree(os.path.join(ROOT, name), os.path.join(tmp, name),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+        wall = {}
+        for label in ("cold", "warm"):
+            wall[label], rc, out = ccaudit(tmp, "--cache", "--json")
+            doc = json.loads(out)
+            require(rc == 0 and not doc["new"] and not doc["stale"],
+                    f"ccaudit ({label}) exited {rc}: {len(doc['new'])} new, "
+                    f"{len(doc['stale'])} stale: {doc['new'][:3]}")
+        modules = len(core.iter_python_files(tmp, core.DEFAULT_TARGETS))
+        t0 = time.monotonic()
+        inventory, sites = launchflow.survey_paths(tmp, cache=True)
+        survey_s = time.monotonic() - t0
+
+        plan = os.path.join(tmp, "tpu_cc_manager_torch", "plan.py")
+        with open(plan) as f:
+            unlocked = unlock_eval_fn(f.read())
+        with open(plan, "w") as f:
+            f.write(unlocked)
+        sarif = os.path.join(tmp, "armed.sarif")
+        wall["armed"], rc, _ = ccaudit(tmp, "--cache", "--no-manifests",
+                                       "--sarif", sarif)
+        with open(sarif) as f:
+            results = json.load(f)["runs"][0]["results"]
+    armed = sorted(
+        r["locations"][0]["physicalLocation"]["region"]["startLine"]
+        for r in results if r["ruleId"] == "unserialized-dispatch"
+        and r["level"] == "error")
+    require(rc == 1 and armed,
+            f"the unlocked plan.py gave rc {rc} and no error-level "
+            f"unserialized-dispatch: {results[:3]}")
+
+    covered = {k for x in inventory for k in x.kernels}
+    ran = sorted(k for k, n in launched.items() if n > 0)
+    require(set(ran) <= covered,
+            f"kernels launched outside the pass's inventory: "
+            f"{sorted(set(ran) - covered)}")
+    outside = [s for s in sites if s.rule == "unserialized-dispatch"]
+    require(outside and all(s.status in ("locked", "pragma")
+                            for s in outside),
+            f"launch sites neither locked nor pragma'd: {outside}")
+    require(not [s for s in sites if s.status == "finding"],
+            f"the kernel-launch pass found {sites}")
+    pragmas: Dict[str, int] = {}
+    for s in sites:
+        if s.status == "pragma":
+            pragmas[s.rule] = pragmas.get(s.rule, 0) + 1
+    torch.cuda.synchronize()
+    require(not any(LAUNCHES.values()),
+            f"phase 14 launched kernels: {dict(LAUNCHES)}")
+    out = {
+        "cold_s": wall["cold"], "warm_s": wall["warm"],
+        "armed_s": wall["armed"], "survey_s": survey_s,
+        "modules": modules, "exit": 0, "new": 0, "stale": 0,
+        "armed_lines": armed, "pragma_sites": pragmas,
+        "dispatch_sites": {status: sum(1 for s in outside
+                                       if s.status == status)
+                           for status in ("locked", "pragma")},
+        "inventory": {x.name: list(x.kernels) for x in inventory},
+        "launched": ran, "nvidia_smi": smi,
+    }
+    finding(phase="analysis", **out)
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4378,6 +4521,13 @@ def run() -> None:
     simlab_launches = simlab_path()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         _sysfs, sysfs_launches = sysfs_phase(tmp, smi)
+    launched = {
+        name: sum(path.get(name, 0) for path in (
+            launches, flip_launches, mesh_launches, agent_launches,
+            controller_launches, shard_launches, simlab_launches,
+            sysfs_launches))
+        for name in KERNELS}
+    analysis_phase(smi, launched)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4448,6 +4598,16 @@ def run_sysfs() -> None:
     print(smi, flush=True)
 
 
+def run_analysis() -> None:
+    """``--analysis``: phase 14 alone, its inventory held to every launch
+    counter (no phase before it launched anything)."""
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+
+    smi = nvidia_smi()
+    analysis_phase(smi, {name: 1 for name in LAUNCHES})
+    print(smi, flush=True)
+
+
 def run_multi_card() -> None:
     """``--multi-card``: phase 8 (e) alone, on every visible card."""
     from tpu_cc_manager_torch.kernels import _build
@@ -4465,13 +4625,14 @@ def run_multi_card() -> None:
 
 MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
          ("--simlab",): run_simlab, ("--sysfs",): run_sysfs,
-         ("--multi-card",): run_multi_card}
+         ("--analysis",): run_analysis, ("--multi-card",): run_multi_card}
 
 
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
         print("usage: python3 chip_smoke.py "
-              "[--k1 | --k2k3 | --simlab | --sysfs | --multi-card]",
+              "[--k1 | --k2k3 | --simlab | --sysfs | --analysis | "
+              "--multi-card]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

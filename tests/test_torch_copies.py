@@ -6,6 +6,16 @@ rewritten in its import statements (``tpu_cc_manager`` →
 a block of the reference's text and the block the port has in its place.
 Each exception must occur exactly once; after the rewrite and the
 exceptions the two sources must be equal, byte for byte.
+
+The analyzer's modules (``analysis/``) take a second rewrite after the
+first: every ``tpu_cc_manager`` followed by ``/`` or ``.`` names the port,
+in string literals and docstrings too. That directory alone gets it
+because the analyzer keys its rules on its own package's paths and dotted
+names in string literals (the label-exempt directory, the labels module's
+prefixes, the path-scoped rules' module sets, the simlab exemptions, the
+hot-root scope, the baseline's path): with only the import rewrite the
+port's analyzer would scan the port with the reference's keys. Every
+other module's literals name the reference on purpose or not at all.
 """
 
 import pathlib
@@ -15,6 +25,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+tpu_cc_manager\b")
+_PATH = re.compile(r"\btpu_cc_manager(?=[./])")
+
+#: the directory whose copies take the path rewrite too
+PATH_REWRITTEN = "analysis/"
 
 COPIES = (
     "device/base.py", "device/statefile.py", "device/native.py",
@@ -31,6 +45,13 @@ COPIES = (
     "simlab/pump.py", "simlab/replica.py", "simlab/faults.py",
     "simlab/invariants.py", "simlab/runner.py", "simlab/federation.py",
     "simlab/propgen.py", "simlab/__init__.py",
+    # the analyzer, in import order
+    "analysis/core.py", "analysis/baseline.py", "analysis/rules.py",
+    "analysis/callgraph.py", "analysis/threads.py", "analysis/lockset.py",
+    "analysis/lockgraph.py", "analysis/dataflow.py",
+    "analysis/asyncflow.py", "analysis/jitflow.py",
+    "analysis/resourceflow.py", "analysis/manifests.py", "analysis/slo.py",
+    "analysis/sarif.py", "analysis/__init__.py", "analysis/__main__.py",
 )
 
 #: module -> [(name, reference block, port block)]
@@ -119,6 +140,38 @@ EXCEPTIONS = {
         help="device backend to probe (env TPU_CC_DEVICE_BACKEND; "
              "default cuda)",'''),
     ],
+    "analysis/core.py": [
+        ("the default surface is the port's package: scripts, bench.py "
+         "and __graft_entry__.py belong to the reference, and chip_smoke.py "
+         "is a measurement harness", '''\
+DEFAULT_TARGETS = ("tpu_cc_manager", "scripts", "bench.py", "__graft_entry__.py")
+''', '''\
+DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
+'''),
+        ("the kernel-launch pass runs beside jitflow: its import", '''\
+        jitflow,
+        lockgraph,
+''', '''\
+        jitflow,
+        launchflow,
+        lockgraph,
+'''),
+        ("the kernel-launch pass runs beside jitflow, over the same audits, "
+         "call graph and thread roots", '''\
+    findings.extend(jitflow.jitflow_findings(audits, graph, roots))
+''', '''\
+    findings.extend(jitflow.jitflow_findings(audits, graph, roots))
+    findings.extend(launchflow.launchflow_findings(audits, graph, roots))
+'''),
+    ],
+    "analysis/rules.py": [
+        ("the metric-name pattern matches the port's package name as it "
+         "matches the reference's, and neither is a metric", '''\
+_METRIC_IGNORE = {"tpu_cc_manager"}
+''', '''\
+_METRIC_IGNORE = {"tpu_cc_manager", "tpu_cc_manager_torch"}
+'''),
+    ],
 }
 
 
@@ -134,9 +187,21 @@ def rewrite_imports(text: str) -> str:
     return "".join(out)
 
 
+def rewrite_paths(text: str) -> str:
+    """``text`` with every ``tpu_cc_manager`` followed by ``/`` or ``.``
+    naming the port: paths and dotted names, in code and literals."""
+    return _PATH.sub("tpu_cc_manager_torch", text)
+
+
+def reference_as_port(module: str) -> str:
+    """The reference's ``module`` rewritten as its copy's rule says."""
+    text = rewrite_imports((ROOT / "tpu_cc_manager" / module).read_text())
+    return rewrite_paths(text) if module.startswith(PATH_REWRITTEN) else text
+
+
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_equals_its_reference(module):
-    want = rewrite_imports((ROOT / "tpu_cc_manager" / module).read_text())
+    want = reference_as_port(module)
     for name, ref_block, port_block in EXCEPTIONS.get(module, ()):
         assert want.count(ref_block) == 1, (
             f"{module}: exception {name!r} no longer matches the reference")
@@ -165,3 +230,16 @@ def test_the_rewrite_touches_import_statements_only():
         "import tpu_cc_manager_torch.trace\n"
         "x = 'python -m tpu_cc_manager'\n"
         "from tpu_cc_manager_torch import plan\n")
+
+
+def test_the_path_rewrite_names_the_port_in_paths_and_dotted_names():
+    src = ('''"""python -m tpu_cc_manager.analysis"""\n'''
+           "from tpu_cc_manager import labels\n"
+           'X = ("tpu_cc_manager/simlab/", "tpu_cc_manager.labels.")\n'
+           'T = ("tpu_cc_manager", "tpu_cc_manager_torch/plan.py")\n')
+    assert rewrite_paths(rewrite_imports(src)) == (
+        '''"""python -m tpu_cc_manager_torch.analysis"""\n'''
+        "from tpu_cc_manager_torch import labels\n"
+        'X = ("tpu_cc_manager_torch/simlab/", '
+        '"tpu_cc_manager_torch.labels.")\n'
+        'T = ("tpu_cc_manager", "tpu_cc_manager_torch/plan.py")\n')

@@ -96,7 +96,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module(child):
                 "evidence", "leader", "fleet", "kernels.mesh_combine",
                 "k8s.batch", "drain", "slice_coord", "doctor", "agent",
                 "webhook", "rollout", "policy", "fleetobs", "shard",
-                "federation"):
+                "federation", "analysis", "analysis.__main__",
+                "analysis.core", "analysis.rules", "analysis.jitflow",
+                "analysis.launchflow", "analysis.manifests",
+                "analysis.slo"):
         assert f"tpu_cc_manager_torch.{mod}" in child["modules"]
 
 

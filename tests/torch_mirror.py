@@ -76,7 +76,7 @@ import types
 
 import pytest
 
-from test_torch_copies import rewrite_imports
+from test_torch_copies import rewrite_imports, rewrite_paths
 
 TESTS = pathlib.Path(__file__).resolve().parent
 
@@ -149,12 +149,17 @@ REF = Side(name="reference", pkg="tpu_cc_manager")
 PORT = Side(name="port", pkg="tpu_cc_manager_torch")
 
 
-def port_twin(name: str, edits=()):
+def port_twin(name: str, edits=(), paths: bool = False):
     """The reference test module ``name`` as the port runs it. ``edits``
     are ``(why, old, new)`` text replacements, each matching once, or
-    ``(why, old, new, count)``, matching ``count`` times."""
+    ``(why, old, new, count)``, matching ``count`` times. With ``paths``
+    the module takes the analyzer copies' second rewrite too
+    (``tests/test_torch_copies.py::rewrite_paths``), before the edits:
+    its fixtures' relpaths and dotted names then name the port."""
     path = TESTS / f"{name}.py"
     src = rewrite_imports(path.read_text())
+    if paths:
+        src = rewrite_paths(src)
     for why, old, new, *count in edits:
         want = count[0] if count else 1
         assert src.count(old) == want, (

@@ -685,6 +685,7 @@ def fleet_tick(
     outputs stay on the input device."""
     block = torch.stack([desired, observed, slice_ids, pool_ids, taint,
                          doctor, ev_ts, valid])
+    # ccaudit: allow-unserialized-dispatch(the public tensor-level tick over the caller's own tensors, the counterpart of the reference's fleet_tick, a non-collective jit its dispatch contract does not cover: it touches no resident block, and the package's planner paths dispatch under the lock through _eval_fn instead)
     return fleet_tick_block(
         block, pool_target, int(now_s), int(stale_after_s),
         num_pools=num_pools,
