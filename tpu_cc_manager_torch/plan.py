@@ -65,6 +65,7 @@ from tpu_cc_manager_torch.kernels.fleet_tick import (  # noqa: F401
     fleet_tick_partial,
 )
 from tpu_cc_manager_torch.kernels.mesh_combine import mesh_combine
+from tpu_cc_manager_torch.trace import get_tracer
 
 #: Mode → code, derived from the canonical vocabulary in modes.py so the
 #: planner cannot drift when modes are added. UNKNOWN covers absent or
@@ -83,6 +84,15 @@ for _m in VALID_MODES:
 MODE_CODES[STATE_FAILED] = len(MODE_CODES)
 CODE_MODES = {v: k for k, v in MODE_CODES.items()}
 N_MODES = len(MODE_CODES)
+
+#: the spans a rollout preflight opens on the process tracer, root
+#: first: ``Rollout.run`` opens preflight, discover and groups (groups
+#: re-seated under the closed preflight root), :func:`analyze_fleet`
+#: opens analyze_fleet and encode, :func:`analyze_encoding` snapshot
+#: (the legacy path's), tick and report. None is opened per node or
+#: per group.
+PLANNER_SPANS = ("preflight", "discover", "analyze_fleet", "encode",
+                 "snapshot", "tick", "report", "groups")
 
 #: doctor verdict codes (FleetEncoding feature column)
 DOCTOR_UNREPORTED = 0
@@ -227,12 +237,16 @@ class FleetEncoding:
         #: (fleet.FleetMetrics mirrors it onto /metrics as
         #: tpu_cc_planner_events_dropped_total)
         self.events_dropped = 0
+        #: encode accounting (the encode span's attrs): reallocating
+        #: grows of the columns, rows written
+        self.stats: Dict[str, int] = {"grows": 0, "rows_written": 0}
 
     # ------------------------------------------------------------ internals
     def _grow(self, need: int) -> None:
         if need <= self._cap:
             return
         cap = bucket_nodes(need)
+        self.stats["grows"] += 1
         for attr, fill in (
             ("_desired", 0), ("_observed", 0), ("_slice", 0),
             ("_taint", 0), ("_doctor", 0), ("_ev_ts", -1),
@@ -335,6 +349,7 @@ class FleetEncoding:
         so a report's ``at`` reflects when the verdict CONTENT last
         changed — consistent with the fingerprint's stable reduction."""
         desired, observed, _slice_raw, tainted, _doctor_stable, ev_raw = fp
+        self.stats["rows_written"] += 1
         self._desired[i] = encode_mode(desired)
         self._observed[i] = encode_mode(observed)
         if slice_key is not None:
@@ -1080,15 +1095,18 @@ class TickResult:
     tick — incremental ticks carry it forward."""
 
     __slots__ = ("n", "bucket", "kind", "outputs", "checksum", "names",
-                 "slice_index", "doctor_details")
+                 "slice_index", "doctor_details", "rows")
 
     def __init__(self, n: int, bucket: Optional[int], kind: str,
                  outputs: Optional[Dict[str, np.ndarray]],
                  checksum: Optional[int],
-                 meta: Optional[tuple] = None) -> None:
+                 meta: Optional[tuple] = None, rows: int = 0) -> None:
         self.n = n
         self.bucket = bucket
         self.kind = kind
+        #: rows the tick wrote: the fleet's on a rebuild, the delta's
+        #: on an incremental or full tick, none when cached
+        self.rows = rows
         self.outputs = outputs
         self.checksum = checksum
         self.names, self.slice_index, self.doctor_details = (
@@ -1290,12 +1308,12 @@ class TickSession:
             self.stats["incr_ticks"] += 1
             self._ticks_since_full += 1
         return self._result_locked(
-            "full" if want_full else "incremental", meta)
+            "full" if want_full else "incremental", meta, k)
 
-    def _result_locked(self, kind: str,
-                       meta: Optional[tuple]) -> TickResult:
+    def _result_locked(self, kind: str, meta: Optional[tuple],
+                       rows: int = 0) -> TickResult:
         return TickResult(self._n, self.node_bucket, kind, self._state,
-                          self.last_checksum, meta)
+                          self.last_checksum, meta, rows)
 
     # --------------------------------------------------- rebuild (slow)
     def _rebuild_locked(self, delta: TickDelta,
@@ -1330,7 +1348,7 @@ class TickSession:
         self._pool_dirty.clear()
         self._ticks_since_full = 0
         self.stats["rebuilds"] += 1
-        return self._result_locked("rebuild", meta)
+        return self._result_locked("rebuild", meta, n)
 
     def _hist_from_mirror_locked(self) -> np.ndarray:
         pool = self._mirror["pool_ids"].astype(np.int64)
@@ -1671,24 +1689,42 @@ def analyze_encoding(enc: FleetEncoding,
     is delta-driven and device-resident (docs/planner.md
     incremental-tick contract); without one, every call snapshots and
     uploads — the legacy path, on ``device`` (:func:`_planner_device`).
-    Same report either way."""
+    Same report either way.
+
+    Opens the spans ``snapshot`` (the legacy path's), ``tick`` and
+    ``report`` on the process tracer, each counted from host arrays
+    alone."""
+    tracer = get_tracer()
     if session is not None:
-        res = session.tick(enc, force_full=force_full, with_meta=True)
+        with tracer.span("tick") as span:
+            res = session.tick(enc, force_full=force_full, with_meta=True)
+            span.attrs.update(path=res.kind, rows=res.rows)
         if res.n == 0:
             return _empty_report()
-        return _format_report(res.n, res.names, res.slice_index,
-                              res.doctor_details, res.outputs)
+        with tracer.span("report", n=res.n):
+            return _format_report(res.n, res.names, res.slice_index,
+                                  res.doctor_details, res.outputs)
     dev = _planner_device(device)
-    snap = enc.snapshot()
+    with tracer.span("snapshot") as span:
+        snap = enc.snapshot()
+        span.attrs.update(
+            n=snap.n_nodes, bucket=snap.bucket,
+            bytes=sum(int(c.nbytes) for c in snap.columns.values()))
     n = snap.n_nodes
     if n == 0:
         return _empty_report()
     nb = snap.bucket
-    out = _tick_fn(nb, BUCKET_MIN_POOLS, _planner_mesh(dev))(
-        snap.columns, np.zeros(BUCKET_MIN_POOLS, np.int32)
-    )
-    return _format_report(n, snap.names, snap.slice_index,
-                          snap.doctor_details, out)
+    tick = _tick_fn(nb, BUCKET_MIN_POOLS, _planner_mesh(dev))
+    pool_target = np.zeros(BUCKET_MIN_POOLS, np.int32)
+    bytes_up = int(pool_target.nbytes) + sum(
+        int(snap.columns[key].nbytes) for key in COLS_ORDER)
+    with tracer.span("tick", path="legacy", nb=nb, pb=BUCKET_MIN_POOLS,
+                     bytes_up=bytes_up) as span:
+        out = tick(snap.columns, pool_target)
+        span.attrs["bytes_down"] = sum(int(v.nbytes) for v in out.values())
+    with tracer.span("report", n=n):
+        return _format_report(n, snap.names, snap.slice_index,
+                              snap.doctor_details, out)
 
 
 def analyze_fleet(nodes: List[dict], *,
@@ -1696,12 +1732,20 @@ def analyze_fleet(nodes: List[dict], *,
     """End-to-end host API: node objects in, JSON-ready report out.
     Builds a throwaway feature block; long-lived controllers keep a
     :class:`FleetEncoding` and call :func:`analyze_encoding` so the
-    encode cost tracks deltas, not fleet size."""
+    encode cost tracks deltas, not fleet size. Opens the spans
+    ``analyze_fleet`` and ``encode`` around :func:`analyze_encoding`'s
+    own."""
     dev = _planner_device(device)
-    enc = FleetEncoding()
-    for node in nodes:
-        enc.apply(node)
-    return analyze_encoding(enc, device=dev)
+    tracer = get_tracer()
+    with tracer.span("analyze_fleet") as span:
+        enc = FleetEncoding()
+        with tracer.span("encode", nodes=len(nodes)) as enc_span:
+            for node in nodes:
+                enc.apply(node)
+            enc_span.attrs.update(enc.stats)
+        n = len(enc)
+        span.attrs.update(n=n, bucket=bucket_nodes(n))
+        return analyze_encoding(enc, device=dev)
 
 
 def _pool_result(pools: Sequence[Tuple[str, str, List[dict]]],

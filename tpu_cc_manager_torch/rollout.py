@@ -915,8 +915,16 @@ class Rollout:
 
     # ------------------------------------------------------------- running
     def run(self) -> RolloutReport:
-        nodes = self.discover()
-        preflight = analyze_fleet(nodes)
+        # the preflight's spans: the listing and the planner here, the
+        # group plan below re-seated under the same root (its trace id)
+        # — the root closes before any desired-mode write, so each
+        # group's desired_write stays the root of its own trace
+        with get_tracer().span("preflight", mode=self.mode,
+                               dry_run=self.dry_run) as preflight_span:
+            with get_tracer().span("discover") as span:
+                nodes = self.discover()
+                span.attrs["nodes"] = len(nodes)
+            preflight = analyze_fleet(nodes)
         blockers = []
         if preflight["failed"]:
             blockers.append(f"failed nodes: {preflight['failed']}")
@@ -1031,36 +1039,56 @@ class Rollout:
                         "--resume"
                     )
             planned_count = 0
-            for gname, members in self.plan_groups(nodes):
-                converged = all(
-                    self._converged(by_name[m]) for m in members
+            evidence_calls = evidence_docs = 0
+            evidence_s = 0.0
+            with get_tracer().adopt(preflight_span), \
+                    get_tracer().span("groups") as span:
+                for gname, members in self.plan_groups(nodes):
+                    converged = all(
+                        self._converged(by_name[m]) for m in members
+                    )
+                    if converged and self.verify_evidence:
+                        # a node lying BEFORE the rollout starts must
+                        # not slip through as 'skipped': route it
+                        # through the judged path, where the
+                        # contradiction surfaces. Read-only, so dry-run
+                        # uses it too — the preview must classify
+                        # groups the way the real run would
+                        t_ev = time.monotonic()
+                        converged = not self._evidence_suspects(
+                            members, by_name
+                        )
+                        evidence_s += time.monotonic() - t_ev
+                        evidence_calls += 1
+                        evidence_docs += sum(
+                            1 for m in members
+                            if (by_name[m]["metadata"].get("annotations")
+                                or {}).get(L.EVIDENCE_ANNOTATION)
+                        )
+                    if converged:
+                        results.append(
+                            GroupResult(gname, members, "skipped",
+                                        f"already at {self.mode}")
+                        )
+                    elif self.dry_run:
+                        # the preview marks which groups would canary
+                        # (the first N to-run groups, matching the live
+                        # run's pending order)
+                        detail = ("canary: serial, must succeed"
+                                  if planned_count < self.canary else "")
+                        planned_count += 1
+                        results.append(
+                            GroupResult(gname, members, "planned", detail)
+                        )
+                    else:
+                        pending.append((gname, members))
+                planned = planned_count + len(pending)
+                span.attrs.update(
+                    groups=len(results) + len(pending),
+                    skipped=len(results) + len(pending) - planned,
+                    planned=planned, evidence_calls=evidence_calls,
+                    evidence_docs=evidence_docs, evidence_s=evidence_s,
                 )
-                if converged and self.verify_evidence:
-                    # a node lying BEFORE the rollout starts must not
-                    # slip through as 'skipped': route it through the
-                    # judged path, where the contradiction surfaces.
-                    # Read-only, so dry-run uses it too — the preview
-                    # must classify groups the way the real run would
-                    converged = not self._evidence_suspects(
-                        members, by_name
-                    )
-                if converged:
-                    results.append(
-                        GroupResult(gname, members, "skipped",
-                                    f"already at {self.mode}")
-                    )
-                elif self.dry_run:
-                    # the preview marks which groups would canary (the
-                    # first N to-run groups, matching the live run's
-                    # pending order)
-                    detail = ("canary: serial, must succeed"
-                              if planned_count < self.canary else "")
-                    planned_count += 1
-                    results.append(
-                        GroupResult(gname, members, "planned", detail)
-                    )
-                else:
-                    pending.append((gname, members))
             if not self.dry_run:
                 import uuid as _uuid
 

@@ -180,7 +180,7 @@ PHASES = (
 class Span:
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id",
-        "start_ts", "dur_s", "status", "error", "attrs",
+        "start_ts", "t0", "dur_s", "status", "error", "attrs",
     )
 
     def __init__(self, name: str, trace_id: str, span_id: str,
@@ -190,6 +190,8 @@ class Span:
         self.span_id = span_id
         self.parent_id = parent_id
         self.start_ts = time.time()
+        #: monotonic start, set as the span opens (Tracer.span)
+        self.t0 = 0.0
         self.dur_s: float = 0.0
         self.status = "ok"
         self.error: Optional[str] = None
@@ -316,7 +318,9 @@ class Tracer:
             parent_id=parent.span_id if parent else None,
             attrs=attrs,
         )
-        t0 = time.monotonic()
+        # the span keeps its monotonic start (to_dict leaves it out):
+        # [t0, t0 + dur_s] lies on the clock a device trace is tied to
+        t0 = s.t0 = time.monotonic()
         stack.append(s)
         active = _active_stack()
         active.append(s)
