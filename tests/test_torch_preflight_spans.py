@@ -5,7 +5,8 @@ One ``Rollout.run()`` opens, on ``trace.get_tracer()``::
     preflight            attrs: mode, dry_run
     ├─ discover          attrs: nodes
     ├─ analyze_fleet     attrs: n, bucket
-    │  ├─ encode         attrs: nodes, rows_written, grows
+    │  ├─ encode         attrs: nodes, rows_written, grows, ts_fast,
+    │  │                        ts_fallback
     │  ├─ snapshot       attrs: n, bucket, bytes
     │  ├─ tick           attrs: path, nb, pb, bytes_up, bytes_down
     │  └─ report         attrs: n
@@ -111,11 +112,6 @@ def by_name(done):
     return out
 
 
-def grows_for(n):
-    """The reallocating grows of an encoding filled with ``n`` rows."""
-    return len({plan.bucket_nodes(i) for i in range(1, n + 1)})
-
-
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_a_dry_run_records_the_preflight_tree(shape, spans):
     kube, nodes, _ = fleet(shape)
@@ -162,8 +158,12 @@ def test_each_attribute_is_what_the_fleet_holds(shape, spans):
     assert one["preflight"].attrs == {"mode": MODE, "dry_run": True}
     assert one["discover"].attrs == {"nodes": n}
     assert one["analyze_fleet"].attrs == {"n": n, "bucket": nb}
+    # one grow to the bucket; every evidence timestamp is the exact shape
+    stamped = sum(L.EVIDENCE_ANNOTATION in node["metadata"]["annotations"]
+                  for node in nodes)
     assert one["encode"].attrs == {"nodes": n, "rows_written": n,
-                                   "grows": grows_for(n)}
+                                   "grows": 1, "ts_fast": stamped,
+                                   "ts_fallback": 0}
     assert one["snapshot"].attrs == {"n": n, "bucket": nb,
                                      "bytes": 8 * 4 * nb}
     tick = one["tick"].attrs

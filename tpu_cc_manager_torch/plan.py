@@ -45,10 +45,12 @@ import calendar
 import json
 import logging
 import os
+import re
 import sys
 import threading
 import time
 import zlib
+from datetime import datetime
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -138,12 +140,34 @@ def encode_mode(value: Optional[str]) -> int:
     return MODE_CODES.get(value or "unknown", MODE_CODES["unknown"])
 
 
-def _parse_ts(stamp: Any) -> int:
+#: the timestamp's exact shape: ASCII digits, the hour, minute and
+#: second in range. Only such strings reach ``datetime.fromisoformat``,
+#: so its reading never rests on where it and ``time.strptime`` differ
+#: (an hour 24, a second 60)
+_TS_SHAPE = re.compile(
+    r"[0-9]{4}-[0-9]{2}-[0-9]{2}T(?:[01][0-9]|2[0-3]):[0-5][0-9]:[0-5][0-9]Z")
+
+
+def _parse_ts(stamp: Any, stats: Dict[str, int]) -> int:
     """'%Y-%m-%dT%H:%M:%SZ' → epoch seconds, -1 when absent/unparseable.
+
+    The exact shape is read by ``datetime.fromisoformat``; any other
+    string (second 60, single-digit fields, other digits, a date that
+    does not exist) by ``time.strptime``, as before. ``stats`` counts the
+    strings each way took: ``ts_fast`` and ``ts_fallback``.
 
     int32-safe until 2038; the kernel only ever subtracts it from now."""
     if not isinstance(stamp, str):
         return -1
+    if _TS_SHAPE.fullmatch(stamp) is not None:
+        try:
+            ts = int(datetime.fromisoformat(stamp).timestamp())
+        except ValueError:
+            pass
+        else:
+            stats["ts_fast"] += 1
+            return ts
+    stats["ts_fallback"] += 1
     try:
         return int(calendar.timegm(time.strptime(stamp, "%Y-%m-%dT%H:%M:%SZ")))
     except ValueError:
@@ -167,8 +191,9 @@ def _encode_doctor(raw: Optional[str]) -> Tuple[int, Optional[dict]]:
         return DOCTOR_FAILING, {"fail": ["unparseable"], "at": None}
 
 
-def _encode_evidence_ts(raw: Optional[str]) -> int:
-    """Evidence annotation → document timestamp (epoch s), -1 if none."""
+def _encode_evidence_ts(raw: Optional[str], stats: Dict[str, int]) -> int:
+    """Evidence annotation → document timestamp (epoch s), -1 if none.
+    The whole document is parsed: a malformed one reads -1."""
     if not raw:
         return -1
     try:
@@ -177,7 +202,7 @@ def _encode_evidence_ts(raw: Optional[str]) -> int:
         return -1
     if not isinstance(doc, dict):
         return -1
-    return _parse_ts(doc.get("timestamp"))
+    return _parse_ts(doc.get("timestamp"), stats)
 
 
 def _has_flip_taint(node: dict) -> bool:
@@ -238,8 +263,10 @@ class FleetEncoding:
         #: tpu_cc_planner_events_dropped_total)
         self.events_dropped = 0
         #: encode accounting (the encode span's attrs): reallocating
-        #: grows of the columns, rows written
-        self.stats: Dict[str, int] = {"grows": 0, "rows_written": 0}
+        #: grows of the columns, rows written, evidence timestamps read
+        #: by the exact-shape path and by ``time.strptime``
+        self.stats: Dict[str, int] = {"grows": 0, "rows_written": 0,
+                                      "ts_fast": 0, "ts_fallback": 0}
 
     # ------------------------------------------------------------ internals
     def _grow(self, need: int) -> None:
@@ -363,7 +390,7 @@ class FleetEncoding:
             self._doctor_details[name] = details
         else:
             self._doctor_details.pop(name, None)
-        self._ev_ts[i] = _encode_evidence_ts(ev_raw)
+        self._ev_ts[i] = _encode_evidence_ts(ev_raw, self.stats)
 
     # -------------------------------------------------------------- updates
     def apply(self, node: dict) -> bool:
@@ -387,11 +414,11 @@ class FleetEncoding:
                 self._grow(i + 1)
                 self._names.append(name)
                 self._row[name] = i
-            elif old_fp is not None and (
-                    old_fp[2] if old_fp[2] else f"__solo__/{name}"
-            ) == slice_key:
+            elif self._slice_key_of.get(int(self._slice[i])) == slice_key:
                 # unchanged slice membership keeps its id — mode/taint/
                 # doctor updates must not churn the slice slot space
+                # (read from the row, which a block built by
+                # _throwaway has without a fingerprint)
                 slice_key = None  # type: ignore[assignment]
             else:
                 old_sid = int(self._slice[i])
@@ -471,6 +498,72 @@ class FleetEncoding:
             if self.remove(name):
                 changed += 1
         return changed
+
+    @classmethod
+    def _throwaway(cls, nodes: Sequence[dict]) -> "FleetEncoding":
+        """A block built once from a full list and never diffed
+        (:func:`analyze_fleet`, :func:`encode_fleet`), in one pass: the
+        rows, slice ids and doctor details one :meth:`apply` per node
+        leaves, with one lock, one grow, each annotation parsed once and
+        no fingerprints. A later :meth:`apply` then rewrites every row
+        it is given, which is only more work. A list that repeats a
+        name (an API server's never does) takes :meth:`apply` per node,
+        whose last write and slice release it keeps exactly."""
+        enc = cls()
+        stats = enc.stats
+        names: List[str] = []
+        rows: Dict[str, int] = {}
+        cols: Tuple[List[int], ...] = ([], [], [], [], [], [])
+        desired, observed, sids, taint, doctor, ev_ts = cols
+        slice_index: Dict[str, int] = {}
+        members: List[List[int]] = []
+        details: Dict[str, dict] = {}
+        for node in nodes:
+            meta = node.get("metadata") or {}
+            name = meta.get("name")
+            if not name:
+                raise KeyError("node without metadata.name")
+            if name in rows:
+                enc = cls()
+                for each in nodes:
+                    enc.apply(each)
+                return enc
+            i = rows[name] = len(names)
+            names.append(name)
+            labels = meta.get("labels") or {}
+            ann = meta.get("annotations") or {}
+            desired.append(encode_mode(labels.get(L.CC_MODE_LABEL)))
+            observed.append(encode_mode(labels.get(L.CC_MODE_STATE_LABEL)))
+            key = labels.get(L.TPU_SLICE_LABEL) or f"__solo__/{name}"
+            sid = slice_index.get(key)
+            if sid is None:
+                sid = slice_index[key] = len(members)
+                members.append([])
+            members[sid].append(i)
+            sids.append(sid)
+            taint.append(1 if _has_flip_taint(node) else 0)
+            code, det = _encode_doctor(ann.get(L.DOCTOR_ANNOTATION))
+            doctor.append(code)
+            if det is not None:
+                details[name] = det
+            ev_ts.append(_encode_evidence_ts(
+                ann.get(L.EVIDENCE_ANNOTATION), stats))
+        n = len(names)
+        with enc._lock:
+            enc._grow(n)
+            for arr, col in zip((enc._desired, enc._observed, enc._slice,
+                                 enc._taint, enc._doctor, enc._ev_ts), cols):
+                arr[:n] = col
+            enc._names = names
+            enc._row = rows
+            enc._slice_index = slice_index
+            enc._slice_key_of = {sid: key for key, sid in slice_index.items()}
+            enc._slice_refs = {sid: len(m) for sid, m in enumerate(members)}
+            enc._slice_rows = {sid: set(m) for sid, m in enumerate(members)}
+            enc._next_slice = len(members)
+            enc._doctor_details = details
+            stats["rows_written"] += n
+        return enc
 
     # ------------------------------------------------------------ snapshots
     def __len__(self) -> int:
@@ -657,10 +750,7 @@ def encode_fleet(nodes: List[dict]) -> Tuple[
     """Legacy tuple encoding (desired, observed, slice_ids, names,
     slice_index) — unpadded. Kept for direct kernel users
     (__graft_entry__, tests); controllers use :class:`FleetEncoding`."""
-    enc = FleetEncoding()
-    for node in nodes:
-        enc.apply(node)
-    snap = enc.snapshot()
+    snap = FleetEncoding._throwaway(nodes).snapshot()
     n = snap.n_nodes
     return (
         snap.columns["desired"][:n].copy(),
@@ -1738,10 +1828,8 @@ def analyze_fleet(nodes: List[dict], *,
     dev = _planner_device(device)
     tracer = get_tracer()
     with tracer.span("analyze_fleet") as span:
-        enc = FleetEncoding()
         with tracer.span("encode", nodes=len(nodes)) as enc_span:
-            for node in nodes:
-                enc.apply(node)
+            enc = FleetEncoding._throwaway(nodes)
             enc_span.attrs.update(enc.stats)
         n = len(enc)
         span.attrs.update(n=n, bucket=bucket_nodes(n))
