@@ -247,6 +247,15 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
             planned_count = 0
             evidence_calls = evidence_docs = 0
             evidence_s = 0.0
+            from tpu_cc_manager_torch import identity as _identity
+
+            jwks_loads = _identity.jwks_loads
+            self._judge_stats = {"identity_s": 0.0, "attestation_s": 0.0}
+            self._judge_stats.update(
+                (f"{axis}_{v}", 0) for axis in ("id", "att")
+                for v in ("ok", "missing", "expired", "mismatch",
+                          "invalid", "unverifiable")
+            )
             with get_tracer().adopt(preflight_span), \\
                     get_tracer().span("groups") as span:
                 for gname, members in self.plan_groups(nodes):
@@ -294,7 +303,89 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
                     skipped=len(results) + len(pending) - planned,
                     planned=planned, evidence_calls=evidence_calls,
                     evidence_docs=evidence_docs, evidence_s=evidence_s,
+                    jwks_loads=_identity.jwks_loads - jwks_loads,
+                    **self._judge_stats,
                 )
+"""),
+        ("the identity and attestation judges' seconds and verdict "
+         "counts, kept on the rollout for the group plan's span",
+         """\
+        self._suspect_reasons: Dict[str, str] = {}
+""", """\
+        self._suspect_reasons: Dict[str, str] = {}
+        #: the evidence check's identity and attestation judges: seconds
+        #: in each (identity_s, attestation_s) and each verdict's count
+        #: (id_<verdict>, att_<verdict>); the group plan's span reports
+        #: them for its checks
+        self._judge_stats: Dict[str, float] = {}
+"""),
+        ("the helper that counts one judgement",
+         """\
+    def _evidence_suspects(self, members: List[str],
+""", """\
+    def _count_judge(self, axis: str, verdict: str, seconds: float) -> None:
+        \"\"\"One identity (``id``) or attestation (``att``) judgement.\"\"\"
+        st = self._judge_stats
+        key = "identity_s" if axis == "id" else "attestation_s"
+        st[key] = st.get(key, 0.0) + seconds
+        st[f"{axis}_{verdict}"] = st.get(f"{axis}_{verdict}", 0) + 1
+
+    def _evidence_suspects(self, members: List[str],
+"""),
+        ("the identity judge timed and counted: two monotonic reads",
+         """\
+            try:
+                iverdict, idetail = judge_identity(doc, m)
+            except Exception as e:
+                iverdict, idetail = "invalid", f"identity judge failed: {e}"
+""", """\
+            t_judge = time.monotonic()
+            try:
+                iverdict, idetail = judge_identity(doc, m)
+            except Exception as e:
+                iverdict, idetail = "invalid", f"identity judge failed: {e}"
+            self._count_judge("id", iverdict, time.monotonic() - t_judge)
+"""),
+        ("the attestation judge timed and counted: two monotonic reads",
+         """\
+            try:
+                averdict, adetail = judge_attestation(doc, m)
+            except Exception as e:
+                averdict, adetail = (
+                    "invalid", f"attestation judge failed: {e}"
+                )
+""", """\
+            t_judge = time.monotonic()
+            try:
+                averdict, adetail = judge_attestation(doc, m)
+            except Exception as e:
+                averdict, adetail = (
+                    "invalid", f"attestation judge failed: {e}"
+                )
+            self._count_judge("att", averdict, time.monotonic() - t_judge)
+"""),
+    ],
+    "identity.py": [
+        ("a count of the JWKS files read, which the group plan's span "
+         "reports: the attestation judge reads its file for every "
+         "document", """\
+_jwks_cache: dict = {}
+""", """\
+_jwks_cache: dict = {}
+
+#: JWKS files :func:`load_jwks` has read in this process
+jwks_loads = 0
+"""),
+        ("load_jwks counts each read", """\
+    import json as _json
+
+    with open(path) as f:
+""", """\
+    import json as _json
+
+    global jwks_loads
+    jwks_loads += 1
+    with open(path) as f:
 """),
     ],
     "analysis/rules.py": [

@@ -11,7 +11,9 @@ One ``Rollout.run()`` opens, on ``trace.get_tracer()``::
     │  ├─ tick           attrs: path, nb, pb, bytes_up, bytes_down
     │  └─ report         attrs: n
     └─ groups            attrs: groups, skipped, planned, evidence_calls,
-                                evidence_docs, evidence_s
+                                evidence_docs, evidence_s, identity_s,
+                                attestation_s, id_<verdict> and
+                                att_<verdict> for each verdict, jwks_loads
 
 ``groups`` is re-seated under the closed ``preflight`` root (the same
 trace id), so it begins after the root ends. Every span keeps its
@@ -75,7 +77,9 @@ def fleet(shape):
     """``(kube, nodes, expect)``: every third group converged to MODE,
     the next flipping, the next at another mode; the first member of
     every other group carries evidence, signed for MODE, except in the
-    first converged group, whose document attests ``off``."""
+    first converged group, whose document attests ``off``. The documents
+    carry no tokens, so each honest one in a converged group reads
+    ``missing`` to both the identity and the attestation judge."""
     n_groups, size = SHAPES[shape]
     kube = FakeKube()
     nodes = []
@@ -101,7 +105,11 @@ def fleet(shape):
         converged += g % 3 == 0
     expect = {"groups": n_groups, "evidence_calls": converged,
               "evidence_docs": docs, "skipped": converged - lying,
-              "planned": n_groups - converged + lying}
+              "planned": n_groups - converged + lying, "jwks_loads": 0}
+    expect.update((f"{axis}_{v}", 0) for axis in ("id", "att")
+                  for v in ("ok", "missing", "expired", "mismatch",
+                            "invalid", "unverifiable"))
+    expect.update(id_missing=docs - lying, att_missing=docs - lying)
     return kube, nodes, expect
 
 
@@ -181,8 +189,10 @@ def test_each_attribute_is_what_the_fleet_holds(shape, spans):
     assert one["report"].attrs == {"n": n}
     groups = dict(one["groups"].attrs)
     evidence_s = groups.pop("evidence_s")
+    judges_s = groups.pop("identity_s") + groups.pop("attestation_s")
     assert groups == expect
     assert 0 < evidence_s <= one["groups"].dur_s
+    assert 0 < judges_s <= evidence_s
     outcomes = [g.outcome for g in report.groups]
     assert outcomes.count("skipped") == expect["skipped"]
     assert outcomes.count("planned") == expect["planned"]

@@ -318,6 +318,9 @@ _SHA256_DIGEST_INFO = bytes.fromhex(
 #: rotated ConfigMap mount is picked up without a restart
 _jwks_cache: dict = {}
 
+#: JWKS files :func:`load_jwks` has read in this process
+jwks_loads = 0
+
 
 def load_jwks(path: str) -> dict:
     """Parse a JWKS document (the shape of Google's
@@ -327,6 +330,8 @@ def load_jwks(path: str) -> dict:
     {kid: (n, e)} RSA public numbers."""
     import json as _json
 
+    global jwks_loads
+    jwks_loads += 1
     with open(path) as f:
         doc = _json.load(f)
     keys = {}

@@ -351,6 +351,11 @@ class Rollout:
         #: member -> why its evidence was rejected, for actionable
         #: timeout verdicts (unsigned-under-key names the manifest fix)
         self._suspect_reasons: Dict[str, str] = {}
+        #: the evidence check's identity and attestation judges: seconds
+        #: in each (identity_s, attestation_s) and each verdict's count
+        #: (id_<verdict>, att_<verdict>); the group plan's span reports
+        #: them for its checks
+        self._judge_stats: Dict[str, float] = {}
         #: total groups this run will judge (set once planning is done);
         #: the progress hook's denominator
         self._planned_total: Optional[int] = None
@@ -1041,6 +1046,15 @@ class Rollout:
             planned_count = 0
             evidence_calls = evidence_docs = 0
             evidence_s = 0.0
+            from tpu_cc_manager_torch import identity as _identity
+
+            jwks_loads = _identity.jwks_loads
+            self._judge_stats = {"identity_s": 0.0, "attestation_s": 0.0}
+            self._judge_stats.update(
+                (f"{axis}_{v}", 0) for axis in ("id", "att")
+                for v in ("ok", "missing", "expired", "mismatch",
+                          "invalid", "unverifiable")
+            )
             with get_tracer().adopt(preflight_span), \
                     get_tracer().span("groups") as span:
                 for gname, members in self.plan_groups(nodes):
@@ -1088,6 +1102,8 @@ class Rollout:
                     skipped=len(results) + len(pending) - planned,
                     planned=planned, evidence_calls=evidence_calls,
                     evidence_docs=evidence_docs, evidence_s=evidence_s,
+                    jwks_loads=_identity.jwks_loads - jwks_loads,
+                    **self._judge_stats,
                 )
             if not self.dry_run:
                 import uuid as _uuid
@@ -1582,6 +1598,13 @@ class Rollout:
             )
         return None
 
+    def _count_judge(self, axis: str, verdict: str, seconds: float) -> None:
+        """One identity (``id``) or attestation (``att``) judgement."""
+        st = self._judge_stats
+        key = "identity_s" if axis == "id" else "attestation_s"
+        st[key] = st.get(key, 0.0) + seconds
+        st[f"{axis}_{verdict}"] = st.get(f"{axis}_{verdict}", 0) + 1
+
     def _evidence_suspects(self, members: List[str],
                            by_name: Dict[str, dict]) -> List[str]:
         """Members whose PRESENT evidence annotation contradicts this
@@ -1694,10 +1717,12 @@ class Rollout:
             # always a suspect; a MISSING or merely expired token is
             # one only when the operator requires identity — the
             # rollout must keep working on platforms that mint none
+            t_judge = time.monotonic()
             try:
                 iverdict, idetail = judge_identity(doc, m)
             except Exception as e:
                 iverdict, idetail = "invalid", f"identity judge failed: {e}"
+            self._count_judge("id", iverdict, time.monotonic() - t_judge)
             if iverdict in ("mismatch", "invalid"):
                 self._suspect_reasons[m] = f"identity: {idetail}"
                 out.append(m)
@@ -1718,12 +1743,14 @@ class Rollout:
             # rollouts keep working on TEE-less pools. A rollout must
             # not count a forged-state node as converged when the
             # fleet audit would flag it a scan later.
+            t_judge = time.monotonic()
             try:
                 averdict, adetail = judge_attestation(doc, m)
             except Exception as e:
                 averdict, adetail = (
                     "invalid", f"attestation judge failed: {e}"
                 )
+            self._count_judge("att", averdict, time.monotonic() - t_judge)
             if averdict in ("mismatch", "invalid"):
                 self._suspect_reasons[m] = f"attestation: {adetail}"
                 out.append(m)
