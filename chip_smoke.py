@@ -194,10 +194,21 @@ exits non-zero without them, and whenever any phase fails.
    ``if True:`` in the copy, exit 1 with error-level
    ``unserialized-dispatch`` results in its SARIF. The kernel-launch
    pass's inventory (``analysis/launchflow.py``) covers every kernel
-   phases 1-13 launched, and every launch site it found outside
+   phases 1-13 and 15 launched, and every launch site it found outside
    ``kernels/`` holds the lock or a pragma (the ``analysis`` line:
    wall seconds, modules scanned, pragma'd sites per family, the
    inventory, the card's name and power limit). It launches no kernel.
+15. (Run before phase 14.) K6, the batched RS256 verification, against
+   its plain version (Python's ``pow``) over a group plan's batch on the
+   ``cvm5k`` fleet (~9 550 signatures under 2048-bit keys, half of them
+   valid), then timed, with its bound by the 32-bit multiply-adds its
+   function needs at the card's top SM clock (the ``k6`` line); then K6
+   on its own path: ``Rollout(kube, "on", dry_run=True).run()`` over the
+   ``cvm5k`` fleet cut to 1,000 nodes (both tokens on every document,
+   the configuration's planted shares, both JWKS files provisioned)
+   launches K6 exactly once, answers every RS256 check from the batch
+   (``rsa_host`` 0) and plans the groups and verdict counts of the same
+   run with no batch (the ``rs256_path`` line).
 
 ``python3 chip_smoke.py --k1`` runs phases 1 and 2's K1, K1-partial and
 K4 work alone, to compare two versions of K1 within one chip call.
@@ -205,6 +216,7 @@ K4 work alone, to compare two versions of K1 within one chip call.
 phases 2 and 8 (a) alone, with the row count where K3's one-CTA kernel
 and K1's route cross (the ``k3_crossover`` line), to compare two
 versions of K2 and K3 within one chip call.
+``python3 chip_smoke.py --k6`` runs phases 1 and 15 alone.
 ``python3 chip_smoke.py --simlab`` runs phases 1 and 12 alone.
 ``python3 chip_smoke.py --sysfs`` runs phases 1 and 13 alone.
 ``python3 chip_smoke.py --analysis`` runs phase 14 alone, its inventory
@@ -218,12 +230,14 @@ phase 8's (b) and read just after its (d), again just before phase 9
 and read just after it, again just before phase 10 and read just after
 it, again just before phase 11 and read just after it, again just
 before phase 12 and read just after it, again just before phase
-13's probe (d) and read just after it, and again just before phase 14,
+13's probe (d) and read just after it, again just before phase 15's
+rollout and read just after it, and again just before phase 14,
 which must launch none: each kernel
 must have been launched on its path (on phase 9's, K5 and K1 or K3; on
 phase 10's, K1, K2 and K5; on phase 11's, K1 from every shard and
 region shard, K2 and K5; on phase 12's, K1 and K2; on phase 13's, K5
-exactly once), K2 exactly once per card per incremental tick
+exactly once; on phase 15's, K6 exactly once), K2 exactly once per
+card per incremental tick
 or scan (on phase 11's, per row-writing tick of each shard session), K3
 once per ``entry()`` call and, in the dry run, once per card plus the
 cross-check, and on the paths of phases 10 and 11 K5 once per card per
@@ -237,7 +251,9 @@ the number of visible cards.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
+import hashlib
 import io
 import json
 import os
@@ -4414,6 +4430,8 @@ KERNELS = {
                            "tpu_cc_manager/plan.py:790"),
     "mesh_combine": ("tpu_cc_manager_torch/csrc/mesh_combine.cu",
                      "tpu_cc_manager/plan.py:864"),
+    "rsa_verify": ("tpu_cc_manager_torch/csrc/rsa_verify.cu",
+                   "tpu_cc_manager/identity.py:385 (host pow)"),
 }
 
 
@@ -4521,11 +4539,15 @@ def run() -> None:
     simlab_launches = simlab_path()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         _sysfs, sysfs_launches = sysfs_phase(tmp, smi)
+    measured["rsa_verify"] = [check_k6()]
+    rs256 = rs256_path()
+    rs256_launches = rs256["launches"]
+    launches["rsa_verify"] = rs256_launches["rsa_verify"]
     launched = {
         name: sum(path.get(name, 0) for path in (
             launches, flip_launches, mesh_launches, agent_launches,
             controller_launches, shard_launches, simlab_launches,
-            sysfs_launches))
+            sysfs_launches, rs256_launches))
         for name in KERNELS}
     analysis_phase(smi, launched)
 
@@ -4551,6 +4573,11 @@ def run() -> None:
             "launch_floor_ms": floor,
             "shapes": measured[name],
         })
+        if name == "rsa_verify":
+            # its own path's counts (phase 15): every RS256 check of the
+            # group plan answered from its one launch
+            rows[-1].update(rsa_batched=rs256["rsa_batched"],
+                            rsa_host=rs256["rsa_host"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
 
@@ -4577,6 +4604,195 @@ def run_k2k3() -> None:
     if hasattr(KF, "_plan_route"):
         k3_crossover()
     check_shard_kernels(rate)
+    print(smi, flush=True)
+
+
+#: K6's batch: a group plan's identity and attestation signatures on the
+#: cvm5k fleet (~4 790 and ~4 750 a preflight)
+K6_BATCH = 9_552
+
+
+def k6_products(e: int = 65537, limbs: int = 64) -> int:
+    """32 x 32 -> 64-bit products K6's function needs for one signature
+    under exponent ``e`` with ``limbs``-limb numbers, counting what the
+    work needs rather than what K6 does: each Montgomery product's
+    reduction n^2 + n (the quotient digit of each of n rounds, then n
+    products by the modulus); a general product's a x b half n^2 (into
+    the domain by R^2, and each multiply of the ladder), a squaring's
+    n(n + 1) / 2 (each cross product once), and the product by 1 that
+    leaves the domain n."""
+    n = limbs
+    reduce = n * n + n
+    general = n * n + reduce
+    square = n * (n + 1) // 2 + reduce
+    squarings = e.bit_length() - 1
+    multiplies = bin(e).count("1") - 1
+    return (general + squarings * square + multiplies * general
+            + n + reduce)
+
+
+#: 32-bit multiply-adds K6's function needs a signature under e = 65537:
+#: each product two (its low and its high half)
+K6_IMADS_PER_SIG = 2 * k6_products()
+#: 32-bit integer multiply-adds a clock on one SM of compute capability
+#: 9.0 (the CUDA C++ Programming Guide's arithmetic throughput table)
+IMADS_PER_CLOCK_SM = 64
+
+
+def check_k6() -> Dict[str, Any]:
+    """Phase 15's kernel check: K6 over ``K6_BATCH`` signatures under
+    four 2048-bit keys of 8 primes (e 65537, as the cvm5k fleet's): even
+    items valid, odd ones with their last byte changed. Bit-equal to the
+    plain version, then timed; the bound counts ``K6_IMADS_PER_SIG`` at
+    the card's top SM clock."""
+    from portbench import attestgen as A
+    from tpu_cc_manager_torch.kernels import LAUNCHES
+    from tpu_cc_manager_torch.kernels import rsa_verify as K6
+
+    keys = [A.make_key(f"smoke-k6-{i}", f"k{i}", 2048, 8) for i in range(4)]
+    valid = [(j % 4, b"smoke.k6.%d" % j) for j in range(800)]
+    valid = [(i, msg, A.sign(keys[i], msg)) for i, msg in valid]
+    sigs, digests, idx = [], [], []
+    for j in range(K6_BATCH):
+        i, msg, sig = valid[(j // 2) % len(valid)]
+        if j % 2:
+            changed = sig[:-1] + bytes([sig[-1] ^ 0x02])
+            if int.from_bytes(changed, "big") < keys[i].n:
+                sig = changed
+        sigs.append(sig)
+        digests.append(hashlib.sha256(msg).digest())
+        idx.append(i)
+    host = [torch.from_numpy(K6.limbs(sigs, K6.LIMBS)),
+            torch.tensor(idx, dtype=torch.int32),
+            torch.from_numpy(K6.limbs(digests, K6.DIGEST_LIMBS))]
+    table = [(k.n, k.e) for k in keys]
+    t0 = time.perf_counter()
+    want = K6.rsa_verify(*host, *K6.key_table(table, "cpu"))
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    args = [t.to(DEVICE) for t in host] + list(K6.key_table(table, DEVICE))
+    before = LAUNCHES["rsa_verify"]
+    got = K6.rsa_verify(*args)
+    torch.cuda.synchronize()
+    require(LAUNCHES["rsa_verify"] == before + 1, "K6 did not count one launch")
+    differ = int((got.cpu() != want).sum())
+    require(differ == 0, f"K6 differs from its plain version on {differ} "
+                         f"of {K6_BATCH} signatures")
+    ms = device_ms(lambda: K6.rsa_verify(*args))
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    mhz = float(clock[0]) if clock else 1980.0
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    bound_ms = 1e3 * K6_BATCH * K6_IMADS_PER_SIG / (
+        IMADS_PER_CLOCK_SM * sms * mhz * 1e6)
+    out = {"shape": f"B {K6_BATCH}, 4 keys", "verified": int(want.sum()),
+           "max_abs_err": differ, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "32-bit multiply-adds",
+           "sm_clock_mhz": mhz, "sms": sms,
+           "share_of_bound": bound_ms / ms}
+    finding(phase="k6", **out)
+    return out
+
+
+#: the cvm5k fleet cut to this many nodes for K6's path (phase 15)
+RS256_NODES = 1_000
+
+
+@contextlib.contextmanager
+def environment(values: Dict[str, str]):
+    """``os.environ`` with ``values`` set, restored as it was after."""
+    saved = dict(os.environ)
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def rs256_path() -> Dict[str, Any]:
+    """Phase 15's path: the cvm5k fleet cut to ``RS256_NODES`` nodes,
+    minted by the benchmark's generator with both tokens under the
+    configuration's keys and its planted shares, both JWKS files
+    provisioned. ``Rollout(kube, "on", dry_run=True).run()`` from launch
+    counts set to 0 must launch K6 exactly once, answer every RS256
+    check from the batch (``rsa_host`` 0) and plan the groups and
+    verdict counts of the same run with no batch. Returns the
+    ``rs256_path`` line's readings, the run's launches among them."""
+    from portbench import attestgen as A
+    from portbench import fleetgen as G
+    from portbench.program_spans import ring_records
+    from tpu_cc_manager_torch import rs256
+    from tpu_cc_manager_torch.k8s.fake import FakeKube
+    from tpu_cc_manager_torch.kernels import LAUNCHES, reset_launches
+    from tpu_cc_manager_torch.rollout import Rollout
+
+    with open(os.path.join(ROOT, "portbench", "configs", "cvm5k.json")) as f:
+        cfg = json.load(f)
+    cfg.update(nodes=RS256_NODES, pool_nodes=RS256_NODES // 10)
+    seed = 2 ** 33 + 19
+    now = time.time()
+    nodes = G.make_fleet(cfg, seed, now)
+    keys = A.make_keys(seed, cfg)
+    key = G.evidence_key(seed)
+    A.attest_fleet(nodes, cfg, seed, key, now, keys, workers=1)
+
+    def group_plan() -> Tuple[List[dict], Dict[str, Any], float]:
+        kube = FakeKube()
+        for node in nodes:
+            kube.add_node(copy.deepcopy(node))
+        t0 = time.perf_counter()
+        groups = Rollout(kube, "on", dry_run=True).run().to_dict()["groups"]
+        seconds = time.perf_counter() - t0
+        recs, _ = ring_records()
+        return groups, [r[6] for r in recs if r[0] == "groups"][-1], seconds
+
+    def verdicts(attrs: Dict[str, Any]) -> Dict[str, int]:
+        return {k: v for k, v in attrs.items()
+                if k.startswith(("id_", "att_")) and v}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, \
+            environment({**cfg["env"], **A.write_jwks(tmp, keys),
+                         "TPU_CC_EVIDENCE_KEY": key.decode()}):
+        reset_launches()
+        groups, attrs, seconds = group_plan()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        prepare = rs256.prepare
+        rs256.prepare = lambda annotations: (None, {})
+        try:
+            plain_groups, plain_attrs, plain_seconds = group_plan()
+        finally:
+            rs256.prepare = prepare
+    out = {"nodes": RS256_NODES, "launches": launches,
+           "rsa_batched": attrs["rsa_batched"], "rsa_host": attrs["rsa_host"],
+           "rsa_batch_s": attrs["rsa_batch_s"],
+           "jwks_loads": attrs["jwks_loads"], "verdicts": verdicts(attrs),
+           "run_s": seconds, "no_batch_run_s": plain_seconds}
+    finding(phase="rs256_path", **out)
+    require(launches["rsa_verify"] == 1,
+            f"{launches['rsa_verify']} rsa_verify launches for one group "
+            "plan")
+    require(attrs["rsa_host"] == 0 and attrs["rsa_batched"] > 0,
+            f"rsa_batched {attrs['rsa_batched']}, rsa_host "
+            f"{attrs['rsa_host']}: the batch did not answer every check")
+    require(groups == plain_groups,
+            "the group plan differs with and without the RS256 batch")
+    require(verdicts(attrs) == verdicts(plain_attrs),
+            f"verdicts {verdicts(attrs)} with the batch, "
+            f"{verdicts(plain_attrs)} without")
+    require(plain_attrs["rsa_batched"] == 0,
+            "the run with no batch answered from one")
+    return out
+
+
+def run_k6() -> None:
+    """``--k6``: phases 1 and 15 alone."""
+    set_mesh(1)
+    smi, _lib, _rate, _floor = setup()
+    check_k6()
+    rs256_path()
     print(smi, flush=True)
 
 
@@ -4624,6 +4840,7 @@ def run_multi_card() -> None:
 
 
 MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
+         ("--k6",): run_k6,
          ("--simlab",): run_simlab, ("--sysfs",): run_sysfs,
          ("--analysis",): run_analysis, ("--multi-card",): run_multi_card}
 
@@ -4631,7 +4848,7 @@ MODES = {(): run, ("--k1",): run_k1, ("--k2k3",): run_k2k3,
 def main(argv: Tuple[str, ...] = ()) -> int:
     if tuple(argv) not in MODES:
         print("usage: python3 chip_smoke.py "
-              "[--k1 | --k2k3 | --simlab | --sysfs | --analysis | "
+              "[--k1 | --k2k3 | --k6 | --simlab | --sysfs | --analysis | "
               "--multi-card]",
               file=sys.stderr)
         return 2

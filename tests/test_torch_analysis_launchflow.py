@@ -348,6 +348,9 @@ NOT_LAUNCHERS = {
     "nvcc_path": "the builder's", "source_digest": "the builder's",
     "library_path": "the builder's", "library": "the builder's",
     "check": "the builder's",
+    "takes": "says whether K6 takes a key, on the host",
+    "limbs": "packs numbers into limbs on the host",
+    "key_table": "builds K6's key table on the host",
 }
 
 
@@ -363,6 +366,7 @@ def test_live_inventory_names_every_launcher_of_kernels(live):
         ("mesh_combine", ("mesh_combine",), False, True),
         ("mesh_sum", ("mesh_combine",), False, True),
         ("probe_add_one", ("probe_add_one",), False, False),
+        ("rsa_verify", ("rsa_verify",), False, True),
     ]
     # every launch counter belongs to a launcher in the inventory
     assert {k for x in inv for k in x.kernels} == set(kernels.LAUNCHES)
@@ -395,6 +399,8 @@ def test_live_launch_sites_hold_the_lock_or_a_pragma(live):
         ("plan.py", "mesh_combine", "locked"),
         ("plan.py", "fleet_tick_block", "locked"),
         ("plan.py", "delta_scatter_shards", "locked"),
+        # the group plan's RS256 batch
+        ("rs256.py", "rsa_verify", "locked"),
     ])
     assert [s for s in sites if s.status == "finding"] == []
 

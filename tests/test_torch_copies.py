@@ -210,7 +210,10 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
 """),
         ("the group plan's span, re-seated under the preflight root, with "
          "the evidence check's calls, documents and time counted around "
-         "each _evidence_suspects call (the loop re-indented under it)",
+         "each _evidence_suspects call (the loop re-indented under it), "
+         "and the RS256 pre-pass before the loop: one batch of every "
+         "signature the check will verify, seen by the judges until the "
+         "loop ends, its counts and seconds on the span",
          """\
             planned_count = 0
             for gname, members in self.plan_groups(nodes):
@@ -248,6 +251,7 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
             evidence_calls = evidence_docs = 0
             evidence_s = 0.0
             from tpu_cc_manager_torch import identity as _identity
+            from tpu_cc_manager_torch import rs256 as _rs256
 
             jwks_loads = _identity.jwks_loads
             self._judge_stats = {"identity_s": 0.0, "attestation_s": 0.0}
@@ -258,45 +262,68 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
             )
             with get_tracer().adopt(preflight_span), \\
                     get_tracer().span("groups") as span:
-                for gname, members in self.plan_groups(nodes):
-                    converged = all(
-                        self._converged(by_name[m]) for m in members
+                groups = self.plan_groups(nodes)
+                at_target = [
+                    all(self._converged(by_name[m]) for m in members)
+                    for _, members in groups
+                ]
+                # the RS256 pre-pass: every signature the evidence check
+                # will verify, in one launch of K6; the judges answer
+                # from the batch (identity.rs256_batch) until the loop
+                # ends, and no verdict outlives this group plan
+                batch = None
+                if self.verify_evidence:
+                    batch, self._parsed = _rs256.prepare(
+                        (m, (by_name[m]["metadata"].get("annotations")
+                             or {}).get(L.EVIDENCE_ANNOTATION))
+                        for (_, members), conv in zip(groups, at_target)
+                        if conv for m in members
                     )
-                    if converged and self.verify_evidence:
-                        # a node lying BEFORE the rollout starts must
-                        # not slip through as 'skipped': route it
-                        # through the judged path, where the
-                        # contradiction surfaces. Read-only, so dry-run
-                        # uses it too — the preview must classify
-                        # groups the way the real run would
-                        t_ev = time.monotonic()
-                        converged = not self._evidence_suspects(
-                            members, by_name
-                        )
-                        evidence_s += time.monotonic() - t_ev
-                        evidence_calls += 1
-                        evidence_docs += sum(
-                            1 for m in members
-                            if (by_name[m]["metadata"].get("annotations")
-                                or {}).get(L.EVIDENCE_ANNOTATION)
-                        )
-                    if converged:
-                        results.append(
-                            GroupResult(gname, members, "skipped",
-                                        f"already at {self.mode}")
-                        )
-                    elif self.dry_run:
-                        # the preview marks which groups would canary
-                        # (the first N to-run groups, matching the live
-                        # run's pending order)
-                        detail = ("canary: serial, must succeed"
-                                  if planned_count < self.canary else "")
-                        planned_count += 1
-                        results.append(
-                            GroupResult(gname, members, "planned", detail)
-                        )
-                    else:
-                        pending.append((gname, members))
+                rs256_batch_s = batch.seconds if batch is not None else 0.0
+                evidence_s += rs256_batch_s
+                rs256_scope = _identity.rs256_batch.set(batch)
+                try:
+                    for (gname, members), converged in zip(groups,
+                                                           at_target):
+                        if converged and self.verify_evidence:
+                            # a node lying BEFORE the rollout starts must
+                            # not slip through as 'skipped': route it
+                            # through the judged path, where the
+                            # contradiction surfaces. Read-only, so
+                            # dry-run uses it too — the preview must
+                            # classify groups the way the real run would
+                            t_ev = time.monotonic()
+                            converged = not self._evidence_suspects(
+                                members, by_name
+                            )
+                            evidence_s += time.monotonic() - t_ev
+                            evidence_calls += 1
+                            evidence_docs += sum(
+                                1 for m in members
+                                if (by_name[m]["metadata"].get(
+                                    "annotations") or {}).get(
+                                        L.EVIDENCE_ANNOTATION)
+                            )
+                        if converged:
+                            results.append(
+                                GroupResult(gname, members, "skipped",
+                                            f"already at {self.mode}")
+                            )
+                        elif self.dry_run:
+                            # the preview marks which groups would canary
+                            # (the first N to-run groups, matching the
+                            # live run's pending order)
+                            detail = ("canary: serial, must succeed"
+                                      if planned_count < self.canary
+                                      else "")
+                            planned_count += 1
+                            results.append(GroupResult(
+                                gname, members, "planned", detail))
+                        else:
+                            pending.append((gname, members))
+                finally:
+                    _identity.rs256_batch.reset(rs256_scope)
+                    self._parsed = {}
                 planned = planned_count + len(pending)
                 span.attrs.update(
                     groups=len(results) + len(pending),
@@ -304,11 +331,15 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
                     planned=planned, evidence_calls=evidence_calls,
                     evidence_docs=evidence_docs, evidence_s=evidence_s,
                     jwks_loads=_identity.jwks_loads - jwks_loads,
+                    rsa_batched=batch.batched if batch is not None else 0,
+                    rsa_host=batch.host if batch is not None else 0,
+                    rsa_batch_s=rs256_batch_s,
                     **self._judge_stats,
                 )
 """),
         ("the identity and attestation judges' seconds and verdict "
-         "counts, kept on the rollout for the group plan's span",
+         "counts, kept on the rollout for the group plan's span, and the "
+         "documents the group plan's RS256 pre-pass parsed",
          """\
         self._suspect_reasons: Dict[str, str] = {}
 """, """\
@@ -318,6 +349,21 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
         #: (id_<verdict>, att_<verdict>); the group plan's span reports
         #: them for its checks
         self._judge_stats: Dict[str, float] = {}
+        #: the group plan's evidence documents as its RS256 pre-pass
+        #: parsed them, node -> (annotation, document); empty elsewhere
+        self._parsed: Dict[str, Tuple[str, dict]] = {}
+"""),
+        ("the evidence check takes a document the group plan's RS256 "
+         "pre-pass parsed from the same annotation, and parses it "
+         "otherwise",
+         """\
+            try:
+                doc = json.loads(raw)
+""", """\
+            parsed = self._parsed.get(m)
+            try:
+                doc = (parsed[1] if parsed is not None and parsed[0] is raw
+                       else json.loads(raw))
 """),
         ("the helper that counts one judgement",
          """\
@@ -366,6 +412,59 @@ DEFAULT_TARGETS = ("tpu_cc_manager_torch",)
 """),
     ],
     "identity.py": [
+        ("the context variable the group plan's RS256 batch is set in",
+         """\
+import time
+from typing import Optional, Tuple
+""", """\
+import time
+from contextvars import ContextVar
+from typing import Optional, Tuple
+"""),
+        ("the RS256 check answers from the group plan's batch (kernel K6) "
+         "when it holds the exact inputs, and takes the digest first for "
+         "that lookup",
+         """\
+def _rsa_pkcs1_sha256_verify(n: int, e: int, signing_input: bytes,
+                             sig: bytes) -> bool:
+    \"\"\"RSASSA-PKCS1-v1_5 / SHA-256 verification from the public
+    numbers, pure stdlib: s^e mod n must equal the EMSA-PKCS1-v1_5
+    encoding of the hash. That encoding is fully deterministic, so
+    verification is an exact compare — no parsing of attacker-shaped
+    ASN.1 (the class of bug behind historic BER-laxity forgeries).\"\"\"
+    k = (n.bit_length() + 7) // 8
+    if len(sig) != k:
+        return False
+    m = pow(int.from_bytes(sig, "big"), e, n)
+    em = m.to_bytes(k, "big")
+    digest = hashlib.sha256(signing_input).digest()
+""", """\
+#: the group plan's batch of RS256 verdicts (``rs256.Rs256Batch``): set by
+#: ``Rollout.run`` around one group plan's evidence checks, None elsewhere
+rs256_batch: ContextVar = ContextVar("rs256_batch", default=None)
+
+
+def _rsa_pkcs1_sha256_verify(n: int, e: int, signing_input: bytes,
+                             sig: bytes) -> bool:
+    \"\"\"RSASSA-PKCS1-v1_5 / SHA-256 verification from the public
+    numbers, pure stdlib: s^e mod n must equal the EMSA-PKCS1-v1_5
+    encoding of the hash. That encoding is fully deterministic, so
+    verification is an exact compare — no parsing of attacker-shaped
+    ASN.1 (the class of bug behind historic BER-laxity forgeries).
+    Inside a group plan the verdict comes from its batch (kernel K6)
+    when the batch holds these exact inputs.\"\"\"
+    digest = hashlib.sha256(signing_input).digest()
+    batch = rs256_batch.get()
+    if batch is not None:
+        ok = batch.verdict(n, e, digest, sig)
+        if ok is not None:
+            return ok
+    k = (n.bit_length() + 7) // 8
+    if len(sig) != k:
+        return False
+    m = pow(int.from_bytes(sig, "big"), e, n)
+    em = m.to_bytes(k, "big")
+"""),
         ("a count of the JWKS files read, which the group plan's span "
          "reports: the attestation judge reads its file for every "
          "document", """\
@@ -386,6 +485,93 @@ jwks_loads = 0
     global jwks_loads
     jwks_loads += 1
     with open(path) as f:
+"""),
+        ("the RS256 checks' one reading of a JWT's signing input and "
+         "signature, and the group plan's RS256 pre-pass's decode of a "
+         "token, as the judges decode it and raising nothing",
+         """\
+def claimed_node(payload: dict) -> Optional[str]:
+""", """\
+def _signed_parts(token: str) -> Tuple[bytes, bytes]:
+    \"\"\"The signing input and the signature of a three-part JWT, as every
+    RS256 check reads them; raises where the signature does not
+    decode.\"\"\"
+    signing_input, _, sig_b64 = token.rpartition(".")
+    return signing_input.encode(), _b64url_decode(sig_b64)
+
+
+def rs256_inputs(token: object, keys: dict, alg: Optional[str] = "RS256",
+                 headers: Optional[dict] = None
+                 ) -> Optional[Tuple[int, int, bytes, bytes]]:
+    \"\"\"``(n, e, signing input, signature)`` of the RS256 check a judge
+    makes of ``token`` under ``keys`` ({kid: (n, e)}), decoded as the
+    judges decode it: the header's ``kid`` names the key where its
+    ``alg`` is ``alg`` (any, for None), and :func:`_signed_parts` reads
+    the rest. None where the judge checks no signature under ``keys``.
+    Raises nothing: a token the judges reject as undecodable is None
+    here, and one they reject for its payload, which is left to them,
+    is a check they never ask for. ``headers`` keeps each header
+    segment's key across calls (a fleet's tokens share a few).\"\"\"
+    try:
+        header_b64, _, _ = token.split(".")
+        pub = headers.get(header_b64, ()) if headers is not None else ()
+        if pub == ():
+            header = json.loads(_b64url_decode(header_b64))
+            pub = keys.get(header.get("kid")) if (
+                alg is None or header.get("alg") == alg) else None
+            if headers is not None:
+                headers[header_b64] = pub
+        if pub is None:
+            return None
+        signing_input, sig = _signed_parts(token)
+        return pub[0], pub[1], signing_input, sig
+    except Exception:
+        # the judge meets the same token and says what is wrong with it
+        log.debug("RS256 token left to the judges", exc_info=True)
+        return None
+
+
+def claimed_node(payload: dict) -> Optional[str]:
+"""),
+        ("verify_token reads the signing input and the signature through "
+         "_signed_parts", """\
+            signing_input, _, sig_b64 = token.rpartition(".")
+            try:
+                sig = _b64url_decode(sig_b64)
+            except Exception as e:
+                return "invalid", f"malformed RS256 signature: {e}"
+            if not _rsa_pkcs1_sha256_verify(
+                    pub[0], pub[1], signing_input.encode(), sig):
+""", """\
+            try:
+                signing_input, sig = _signed_parts(token)
+            except Exception as e:
+                return "invalid", f"malformed RS256 signature: {e}"
+            if not _rsa_pkcs1_sha256_verify(
+                    pub[0], pub[1], signing_input, sig):
+"""),
+    ],
+    "attest.py": [
+        ("the Confidential Space judge reads the signing input and the "
+         "signature through identity._signed_parts, as the identity "
+         "judge and the group plan's RS256 pre-pass do", """\
+        _b64url_decode, _rsa_pkcs1_sha256_verify, load_jwks,
+    )
+""", """\
+        _b64url_decode, _rsa_pkcs1_sha256_verify, _signed_parts, load_jwks,
+    )
+"""),
+        ("the same, at the signature check", """\
+    n, e = keys[kid]
+    signing_input = f"{header_b64}.{payload_b64}".encode()
+    try:
+        sig = _b64url_decode(sig_b64)
+        if not _rsa_pkcs1_sha256_verify(n, e, signing_input, sig):
+""", """\
+    n, e = keys[kid]
+    try:
+        signing_input, sig = _signed_parts(token)
+        if not _rsa_pkcs1_sha256_verify(n, e, signing_input, sig):
 """),
     ],
     "analysis/rules.py": [

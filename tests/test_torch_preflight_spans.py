@@ -13,7 +13,8 @@ One ``Rollout.run()`` opens, on ``trace.get_tracer()``::
     └─ groups            attrs: groups, skipped, planned, evidence_calls,
                                 evidence_docs, evidence_s, identity_s,
                                 attestation_s, id_<verdict> and
-                                att_<verdict> for each verdict, jwks_loads
+                                att_<verdict> for each verdict, jwks_loads,
+                                rsa_batched, rsa_host, rsa_batch_s
 
 ``groups`` is re-seated under the closed ``preflight`` root (the same
 trace id), so it begins after the root ends. Every span keeps its
@@ -105,7 +106,8 @@ def fleet(shape):
         converged += g % 3 == 0
     expect = {"groups": n_groups, "evidence_calls": converged,
               "evidence_docs": docs, "skipped": converged - lying,
-              "planned": n_groups - converged + lying, "jwks_loads": 0}
+              "planned": n_groups - converged + lying, "jwks_loads": 0,
+              "rsa_batched": 0, "rsa_host": 0}
     expect.update((f"{axis}_{v}", 0) for axis in ("id", "att")
                   for v in ("ok", "missing", "expired", "mismatch",
                             "invalid", "unverifiable"))
@@ -190,6 +192,8 @@ def test_each_attribute_is_what_the_fleet_holds(shape, spans):
     groups = dict(one["groups"].attrs)
     evidence_s = groups.pop("evidence_s")
     judges_s = groups.pop("identity_s") + groups.pop("attestation_s")
+    # no JWKS here: the RS256 pre-pass builds nothing
+    assert groups.pop("rsa_batch_s") == 0.0
     assert groups == expect
     assert 0 < evidence_s <= one["groups"].dur_s
     assert 0 < judges_s <= evidence_s

@@ -462,7 +462,7 @@ def _judge_cs_token(att: dict, expected_nonce: str) -> Tuple[str, str]:
             "cannot be verified offline"
         )
     from tpu_cc_manager_torch.identity import (
-        _b64url_decode, _rsa_pkcs1_sha256_verify, load_jwks,
+        _b64url_decode, _rsa_pkcs1_sha256_verify, _signed_parts, load_jwks,
     )
 
     try:
@@ -482,9 +482,8 @@ def _judge_cs_token(att: dict, expected_nonce: str) -> Tuple[str, str]:
     if kid not in keys:
         return "unverifiable", f"token kid {kid!r} not in JWKS"
     n, e = keys[kid]
-    signing_input = f"{header_b64}.{payload_b64}".encode()
     try:
-        sig = _b64url_decode(sig_b64)
+        signing_input, sig = _signed_parts(token)
         if not _rsa_pkcs1_sha256_verify(n, e, signing_input, sig):
             return "mismatch", "token signature does not verify"
     except Exception as e:

@@ -59,6 +59,7 @@ import json
 import logging
 import os
 import time
+from contextvars import ContextVar
 from typing import Optional, Tuple
 
 log = logging.getLogger("tpu-cc-manager.identity")
@@ -382,19 +383,31 @@ def _jwks_for_env() -> Optional[dict]:
     return keys
 
 
+#: the group plan's batch of RS256 verdicts (``rs256.Rs256Batch``): set by
+#: ``Rollout.run`` around one group plan's evidence checks, None elsewhere
+rs256_batch: ContextVar = ContextVar("rs256_batch", default=None)
+
+
 def _rsa_pkcs1_sha256_verify(n: int, e: int, signing_input: bytes,
                              sig: bytes) -> bool:
     """RSASSA-PKCS1-v1_5 / SHA-256 verification from the public
     numbers, pure stdlib: s^e mod n must equal the EMSA-PKCS1-v1_5
     encoding of the hash. That encoding is fully deterministic, so
     verification is an exact compare — no parsing of attacker-shaped
-    ASN.1 (the class of bug behind historic BER-laxity forgeries)."""
+    ASN.1 (the class of bug behind historic BER-laxity forgeries).
+    Inside a group plan the verdict comes from its batch (kernel K6)
+    when the batch holds these exact inputs."""
+    digest = hashlib.sha256(signing_input).digest()
+    batch = rs256_batch.get()
+    if batch is not None:
+        ok = batch.verdict(n, e, digest, sig)
+        if ok is not None:
+            return ok
     k = (n.bit_length() + 7) // 8
     if len(sig) != k:
         return False
     m = pow(int.from_bytes(sig, "big"), e, n)
     em = m.to_bytes(k, "big")
-    digest = hashlib.sha256(signing_input).digest()
     pad_len = k - 3 - len(_SHA256_DIGEST_INFO) - len(digest)
     if pad_len < 8:
         return False
@@ -415,6 +428,45 @@ def token_claims(token: str) -> Tuple[dict, dict]:
     if not isinstance(header, dict) or not isinstance(payload, dict):
         raise ValueError("JWT parts are not objects")
     return header, payload
+
+
+def _signed_parts(token: str) -> Tuple[bytes, bytes]:
+    """The signing input and the signature of a three-part JWT, as every
+    RS256 check reads them; raises where the signature does not
+    decode."""
+    signing_input, _, sig_b64 = token.rpartition(".")
+    return signing_input.encode(), _b64url_decode(sig_b64)
+
+
+def rs256_inputs(token: object, keys: dict, alg: Optional[str] = "RS256",
+                 headers: Optional[dict] = None
+                 ) -> Optional[Tuple[int, int, bytes, bytes]]:
+    """``(n, e, signing input, signature)`` of the RS256 check a judge
+    makes of ``token`` under ``keys`` ({kid: (n, e)}), decoded as the
+    judges decode it: the header's ``kid`` names the key where its
+    ``alg`` is ``alg`` (any, for None), and :func:`_signed_parts` reads
+    the rest. None where the judge checks no signature under ``keys``.
+    Raises nothing: a token the judges reject as undecodable is None
+    here, and one they reject for its payload, which is left to them,
+    is a check they never ask for. ``headers`` keeps each header
+    segment's key across calls (a fleet's tokens share a few)."""
+    try:
+        header_b64, _, _ = token.split(".")
+        pub = headers.get(header_b64, ()) if headers is not None else ()
+        if pub == ():
+            header = json.loads(_b64url_decode(header_b64))
+            pub = keys.get(header.get("kid")) if (
+                alg is None or header.get("alg") == alg) else None
+            if headers is not None:
+                headers[header_b64] = pub
+        if pub is None:
+            return None
+        signing_input, sig = _signed_parts(token)
+        return pub[0], pub[1], signing_input, sig
+    except Exception:
+        # the judge meets the same token and says what is wrong with it
+        log.debug("RS256 token left to the judges", exc_info=True)
+        return None
 
 
 def claimed_node(payload: dict) -> Optional[str]:
@@ -500,13 +552,12 @@ def verify_token(token: str, *, node_name: str,
                     f"no JWKS key for kid {kid!r} — JWKS ConfigMap "
                     "lagging a key rotation? refresh it",
                 )
-            signing_input, _, sig_b64 = token.rpartition(".")
             try:
-                sig = _b64url_decode(sig_b64)
+                signing_input, sig = _signed_parts(token)
             except Exception as e:
                 return "invalid", f"malformed RS256 signature: {e}"
             if not _rsa_pkcs1_sha256_verify(
-                    pub[0], pub[1], signing_input.encode(), sig):
+                    pub[0], pub[1], signing_input, sig):
                 return "invalid", "bad RS256 signature"
             return ("expired", "token expired") if expired else (
                 "ok", "ok")

@@ -13,7 +13,8 @@ from typing import Dict
 #: :func:`reset_launches`)
 LAUNCHES: Dict[str, int] = {"fleet_tick": 0, "fleet_tick_partial": 0,
                             "fleet_plan": 0, "delta_scatter": 0,
-                            "probe_add_one": 0, "mesh_combine": 0}
+                            "probe_add_one": 0, "mesh_combine": 0,
+                            "rsa_verify": 0}
 
 
 def reset_launches() -> None:

@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("runtime.cu", "fleet_tick.cu", "fleet_plan.cu", "delta_scatter.cu",
-           "probe.cu", "mesh_combine.cu")
+           "probe.cu", "mesh_combine.cu", "rsa_verify.cu")
 #: headers the sources include; hashed with them
 HEADERS = ("warp_runs.cuh",)
 LIB_NAME = "libtpu_cc_kernels.so"
@@ -187,6 +187,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tcc_mesh_sum.restype = i
     lib.tcc_probe_add_one.argtypes = [p, p, ctypes.c_int64, p]
     lib.tcc_probe_add_one.restype = i
+    lib.tcc_rsa_verify.argtypes = [p, p, p, p, p, p, p, i, i, p, p]
+    lib.tcc_rsa_verify.restype = i
     lib.tcc_error_string.argtypes = [i]
     lib.tcc_error_string.restype = ctypes.c_char_p
     lib.tcc_memory_bytes_per_s.argtypes = [i]

@@ -356,6 +356,9 @@ class Rollout:
         #: (id_<verdict>, att_<verdict>); the group plan's span reports
         #: them for its checks
         self._judge_stats: Dict[str, float] = {}
+        #: the group plan's evidence documents as its RS256 pre-pass
+        #: parsed them, node -> (annotation, document); empty elsewhere
+        self._parsed: Dict[str, Tuple[str, dict]] = {}
         #: total groups this run will judge (set once planning is done);
         #: the progress hook's denominator
         self._planned_total: Optional[int] = None
@@ -1047,6 +1050,7 @@ class Rollout:
             evidence_calls = evidence_docs = 0
             evidence_s = 0.0
             from tpu_cc_manager_torch import identity as _identity
+            from tpu_cc_manager_torch import rs256 as _rs256
 
             jwks_loads = _identity.jwks_loads
             self._judge_stats = {"identity_s": 0.0, "attestation_s": 0.0}
@@ -1057,45 +1061,68 @@ class Rollout:
             )
             with get_tracer().adopt(preflight_span), \
                     get_tracer().span("groups") as span:
-                for gname, members in self.plan_groups(nodes):
-                    converged = all(
-                        self._converged(by_name[m]) for m in members
+                groups = self.plan_groups(nodes)
+                at_target = [
+                    all(self._converged(by_name[m]) for m in members)
+                    for _, members in groups
+                ]
+                # the RS256 pre-pass: every signature the evidence check
+                # will verify, in one launch of K6; the judges answer
+                # from the batch (identity.rs256_batch) until the loop
+                # ends, and no verdict outlives this group plan
+                batch = None
+                if self.verify_evidence:
+                    batch, self._parsed = _rs256.prepare(
+                        (m, (by_name[m]["metadata"].get("annotations")
+                             or {}).get(L.EVIDENCE_ANNOTATION))
+                        for (_, members), conv in zip(groups, at_target)
+                        if conv for m in members
                     )
-                    if converged and self.verify_evidence:
-                        # a node lying BEFORE the rollout starts must
-                        # not slip through as 'skipped': route it
-                        # through the judged path, where the
-                        # contradiction surfaces. Read-only, so dry-run
-                        # uses it too — the preview must classify
-                        # groups the way the real run would
-                        t_ev = time.monotonic()
-                        converged = not self._evidence_suspects(
-                            members, by_name
-                        )
-                        evidence_s += time.monotonic() - t_ev
-                        evidence_calls += 1
-                        evidence_docs += sum(
-                            1 for m in members
-                            if (by_name[m]["metadata"].get("annotations")
-                                or {}).get(L.EVIDENCE_ANNOTATION)
-                        )
-                    if converged:
-                        results.append(
-                            GroupResult(gname, members, "skipped",
-                                        f"already at {self.mode}")
-                        )
-                    elif self.dry_run:
-                        # the preview marks which groups would canary
-                        # (the first N to-run groups, matching the live
-                        # run's pending order)
-                        detail = ("canary: serial, must succeed"
-                                  if planned_count < self.canary else "")
-                        planned_count += 1
-                        results.append(
-                            GroupResult(gname, members, "planned", detail)
-                        )
-                    else:
-                        pending.append((gname, members))
+                rs256_batch_s = batch.seconds if batch is not None else 0.0
+                evidence_s += rs256_batch_s
+                rs256_scope = _identity.rs256_batch.set(batch)
+                try:
+                    for (gname, members), converged in zip(groups,
+                                                           at_target):
+                        if converged and self.verify_evidence:
+                            # a node lying BEFORE the rollout starts must
+                            # not slip through as 'skipped': route it
+                            # through the judged path, where the
+                            # contradiction surfaces. Read-only, so
+                            # dry-run uses it too — the preview must
+                            # classify groups the way the real run would
+                            t_ev = time.monotonic()
+                            converged = not self._evidence_suspects(
+                                members, by_name
+                            )
+                            evidence_s += time.monotonic() - t_ev
+                            evidence_calls += 1
+                            evidence_docs += sum(
+                                1 for m in members
+                                if (by_name[m]["metadata"].get(
+                                    "annotations") or {}).get(
+                                        L.EVIDENCE_ANNOTATION)
+                            )
+                        if converged:
+                            results.append(
+                                GroupResult(gname, members, "skipped",
+                                            f"already at {self.mode}")
+                            )
+                        elif self.dry_run:
+                            # the preview marks which groups would canary
+                            # (the first N to-run groups, matching the
+                            # live run's pending order)
+                            detail = ("canary: serial, must succeed"
+                                      if planned_count < self.canary
+                                      else "")
+                            planned_count += 1
+                            results.append(GroupResult(
+                                gname, members, "planned", detail))
+                        else:
+                            pending.append((gname, members))
+                finally:
+                    _identity.rs256_batch.reset(rs256_scope)
+                    self._parsed = {}
                 planned = planned_count + len(pending)
                 span.attrs.update(
                     groups=len(results) + len(pending),
@@ -1103,6 +1130,9 @@ class Rollout:
                     planned=planned, evidence_calls=evidence_calls,
                     evidence_docs=evidence_docs, evidence_s=evidence_s,
                     jwks_loads=_identity.jwks_loads - jwks_loads,
+                    rsa_batched=batch.batched if batch is not None else 0,
+                    rsa_host=batch.host if batch is not None else 0,
+                    rsa_batch_s=rs256_batch_s,
                     **self._judge_stats,
                 )
             if not self.dry_run:
@@ -1649,8 +1679,10 @@ class Rollout:
             raw = (meta.get("annotations") or {}).get(L.EVIDENCE_ANNOTATION)
             if not raw:
                 continue
+            parsed = self._parsed.get(m)
             try:
-                doc = json.loads(raw)
+                doc = (parsed[1] if parsed is not None and parsed[0] is raw
+                       else json.loads(raw))
                 verdict, attested = judge_evidence(
                     doc, m, key=self._evidence_key
                 )
