@@ -28,7 +28,7 @@ import pytest
 import test_analysis  # noqa: E402
 import tpu_cc_manager.analysis as janalysis  # noqa: E402
 import tpu_cc_manager_torch.analysis as tanalysis  # noqa: E402
-from test_torch_copies import COPIES, EXCEPTIONS, ROOT  # noqa: E402
+from test_torch_copies import COPIES, OWNED, ROOT  # noqa: E402
 from torch_mirror import both, cases, port_twin  # noqa: E402
 from tpu_cc_manager_torch.analysis import core as tcore  # noqa: E402
 from tpu_cc_manager_torch.analysis import rules as trules  # noqa: E402
@@ -36,8 +36,8 @@ from tpu_cc_manager_torch.analysis import rules as trules  # noqa: E402
 #: the cases the port must see differently, each with its reason
 EDITS = (
     ("scripts/ and bench.py belong to the reference: the port's default "
-     "surface is its own package alone (analysis/core.py's named "
-     "exception), so --files drops them",
+     "surface is its own package alone (an owned unit of "
+     "analysis/core.py), so --files drops them",
      '''    assert on_default_surface("scripts/bench_trend.py")
     assert on_default_surface("bench.py")
 ''', '''    assert not on_default_surface("scripts/bench_trend.py")
@@ -68,7 +68,7 @@ def _masked(text: str) -> str:
 def _view(findings, exact):
     """Findings with the package name masked: (rule, file, line,
     message) in a module that differs only by the rewrite, (rule, text)
-    in one with a named exception (its lines may move)."""
+    in one with owned units (its lines may move)."""
     out = []
     for f in findings:
         module = f.file.split("/", 1)[1]
@@ -92,7 +92,7 @@ def test_copies_with_pragmas_disarmed_find_the_same_on_both_packages(
                                   with_manifests=False)
     port = tanalysis.analyze_paths(str(tmp_path), ["tpu_cc_manager_torch"],
                                    with_manifests=False)
-    exact = set(COPIES) - set(EXCEPTIONS)
+    exact = set(COPIES) - set(OWNED)
     assert _view(port, exact) == _view(ref, exact)
     assert len(ref) > 0
     # the disarmed pragmas are what the live scans stay clean by; the

@@ -480,10 +480,10 @@ KID_ONLY, RS256_K = "eyJraWQiOiJrIn0", tidentity._b64url(
 def test_rs256_inputs_raises_on_no_token(token):
     keys = {"k": (2 ** 2047 + 1, 65537)}
     headers = {}
-    assert tidentity.rs256_inputs(token, keys) is None
-    assert tidentity.rs256_inputs(token, keys, None, headers) is None
+    assert rs256.rs256_inputs(token, keys) is None
+    assert rs256.rs256_inputs(token, keys, None, headers) is None
     # a header the cache kept serves the next token alike
-    assert tidentity.rs256_inputs(token, keys, None, headers) is None
+    assert rs256.rs256_inputs(token, keys, None, headers) is None
 
 
 def test_rs256_inputs_reads_what_the_judges_verify():
@@ -491,9 +491,9 @@ def test_rs256_inputs_reads_what_the_judges_verify():
     token = RS256_K + ".e30.AAEC"
     want = (keys["k"][0], 65537, (RS256_K + ".e30").encode(), b"\0\1\2")
     headers = {}
-    assert tidentity.rs256_inputs(token, keys, "RS256", headers) == want
-    assert tidentity.rs256_inputs(token, keys, "RS256", headers) == want
-    assert tidentity.rs256_inputs(KID_ONLY + ".e30.AAEC", keys) is None
-    assert tidentity.rs256_inputs(KID_ONLY + ".e30.AAEC", keys, None)[:2] \
+    assert rs256.rs256_inputs(token, keys, "RS256", headers) == want
+    assert rs256.rs256_inputs(token, keys, "RS256", headers) == want
+    assert rs256.rs256_inputs(KID_ONLY + ".e30.AAEC", keys) is None
+    assert rs256.rs256_inputs(KID_ONLY + ".e30.AAEC", keys, None)[:2] \
         == keys["k"]
-    assert tidentity.rs256_inputs(token, {"j": keys["k"]}) is None
+    assert rs256.rs256_inputs(token, {"j": keys["k"]}) is None

@@ -296,6 +296,14 @@ def test_doctor_publish_round_trip(tmp_path, monkeypatch):
         assert kube.get_node("pub-node")["metadata"]["labels"][
             L.DOCTOR_OK_LABEL] == "false"
         assert kube.list_nodes(f"{L.DOCTOR_OK_LABEL}=false")
+        # the verdict's "at" is its publication time to the second: it
+        # must reach the fleet unchanged, but each side publishes at its
+        # own moment (seconds apart on a loaded host), so it is held to
+        # the side's own annotation and not compared across the sides
+        published = json.loads(kube.get_node("pub-node")["metadata"][
+            "annotations"][L.DOCTOR_ANNOTATION])
+        assert fleet["doctor"]["failing"][0]["at"] == published["at"]
+        fleet["doctor"]["failing"][0]["at"] = "<published>"
         return fleet
 
     both(case)

@@ -319,6 +319,7 @@ _SHA256_DIGEST_INFO = bytes.fromhex(
 #: rotated ConfigMap mount is picked up without a restart
 _jwks_cache: dict = {}
 
+
 #: JWKS files :func:`load_jwks` has read in this process
 jwks_loads = 0
 
@@ -436,37 +437,6 @@ def _signed_parts(token: str) -> Tuple[bytes, bytes]:
     decode."""
     signing_input, _, sig_b64 = token.rpartition(".")
     return signing_input.encode(), _b64url_decode(sig_b64)
-
-
-def rs256_inputs(token: object, keys: dict, alg: Optional[str] = "RS256",
-                 headers: Optional[dict] = None
-                 ) -> Optional[Tuple[int, int, bytes, bytes]]:
-    """``(n, e, signing input, signature)`` of the RS256 check a judge
-    makes of ``token`` under ``keys`` ({kid: (n, e)}), decoded as the
-    judges decode it: the header's ``kid`` names the key where its
-    ``alg`` is ``alg`` (any, for None), and :func:`_signed_parts` reads
-    the rest. None where the judge checks no signature under ``keys``.
-    Raises nothing: a token the judges reject as undecodable is None
-    here, and one they reject for its payload, which is left to them,
-    is a check they never ask for. ``headers`` keeps each header
-    segment's key across calls (a fleet's tokens share a few)."""
-    try:
-        header_b64, _, _ = token.split(".")
-        pub = headers.get(header_b64, ()) if headers is not None else ()
-        if pub == ():
-            header = json.loads(_b64url_decode(header_b64))
-            pub = keys.get(header.get("kid")) if (
-                alg is None or header.get("alg") == alg) else None
-            if headers is not None:
-                headers[header_b64] = pub
-        if pub is None:
-            return None
-        signing_input, sig = _signed_parts(token)
-        return pub[0], pub[1], signing_input, sig
-    except Exception:
-        # the judge meets the same token and says what is wrong with it
-        log.debug("RS256 token left to the judges", exc_info=True)
-        return None
 
 
 def claimed_node(payload: dict) -> Optional[str]:

@@ -9,7 +9,7 @@ JWKS through :func:`identity._jwks_for_env`, the attestation JWKS read once
 from ``TPU_CC_ATTESTATION_JWKS_FILE``), it parses each document once, takes
 from each RS256 token its key by ``kid``, the SHA-256 of its signing input
 and its signature, decoded as the judges decode them
-(:func:`identity.rs256_inputs`, which raises on no token), and verifies
+(:func:`rs256_inputs`, which raises on no token), and verifies
 what K6 takes in one launch on the planner's device. The rollout then sets
 :data:`identity.rs256_batch` around its loop;
 ``identity._rsa_pkcs1_sha256_verify`` answers from the batch when its exact
@@ -23,15 +23,18 @@ from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from tpu_cc_manager_torch.attest import ConfidentialSpaceAttestor
 from tpu_cc_manager_torch.identity import (
-    _jwks_for_env, load_jwks, rs256_inputs,
+    _b64url_decode, _jwks_for_env, _signed_parts, load_jwks,
 )
 from tpu_cc_manager_torch.kernels import rsa_verify as K6
+
+log = logging.getLogger("tpu-cc-manager-torch.rs256")
 
 #: a document's parse as the pre-pass made it: (annotation, document)
 Parsed = Tuple[str, dict]
@@ -109,10 +112,41 @@ class Rs256Batch:
         return bool(self._ok[i])
 
 
+def rs256_inputs(token: object, keys: dict, alg: Optional[str] = "RS256",
+                 headers: Optional[dict] = None
+                 ) -> Optional[Tuple[int, int, bytes, bytes]]:
+    """``(n, e, signing input, signature)`` of the RS256 check a judge
+    makes of ``token`` under ``keys`` ({kid: (n, e)}), decoded as the
+    judges decode it: the header's ``kid`` names the key where its
+    ``alg`` is ``alg`` (any, for None), and
+    :func:`identity._signed_parts` reads the rest. None where the judge checks no signature under ``keys``.
+    Raises nothing: a token the judges reject as undecodable is None
+    here, and one they reject for its payload, which is left to them,
+    is a check they never ask for. ``headers`` keeps each header
+    segment's key across calls (a fleet's tokens share a few)."""
+    try:
+        header_b64, _, _ = token.split(".")
+        pub = headers.get(header_b64, ()) if headers is not None else ()
+        if pub == ():
+            header = json.loads(_b64url_decode(header_b64))
+            pub = keys.get(header.get("kid")) if (
+                alg is None or header.get("alg") == alg) else None
+            if headers is not None:
+                headers[header_b64] = pub
+        if pub is None:
+            return None
+        signing_input, sig = _signed_parts(token)
+        return pub[0], pub[1], signing_input, sig
+    except Exception:
+        # the judge meets the same token and says what is wrong with it
+        log.debug("RS256 token left to the judges", exc_info=True)
+        return None
+
+
 def _queue(batch: Rs256Batch, token: object, keys: dict,
            alg: Optional[str], headers: Dict[str, object]) -> None:
     """Queue ``token``'s check under ``keys``, where a judge makes one
-    (:func:`identity.rs256_inputs`, which raises nothing)."""
+    (:func:`rs256_inputs`, which raises nothing)."""
     inputs = rs256_inputs(token, keys, alg, headers)
     if inputs is not None:
         n, e, signing_input, sig = inputs
