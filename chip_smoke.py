@@ -4768,7 +4768,9 @@ def rs256_path() -> Dict[str, Any]:
     out = {"nodes": RS256_NODES, "launches": launches,
            "rsa_batched": attrs["rsa_batched"], "rsa_host": attrs["rsa_host"],
            "rsa_batch_s": attrs["rsa_batch_s"],
-           "jwks_loads": attrs["jwks_loads"], "verdicts": verdicts(attrs),
+           "jwks_loads": attrs["jwks_loads"],
+           "jwks_snapshot": attrs["jwks_snapshot"],
+           "verdicts": verdicts(attrs),
            "run_s": seconds, "no_batch_run_s": plain_seconds}
     finding(phase="rs256_path", **out)
     require(launches["rsa_verify"] == 1,

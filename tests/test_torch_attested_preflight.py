@@ -13,13 +13,19 @@ required (``TPU_CC_REQUIRE_IDENTITY``, ``TPU_CC_REQUIRE_ATTESTATION``).
 - ``Rollout(kube, "on", dry_run=True).run()``'s groups equal the plain
   reference's (``portbench/reference/attested.py``) and the JAX
   package's.
-- The ``groups`` span's verdict counts and ``jwks_loads`` equal what the
-  planted shares give, every RS256 verdict from the group plan's batch
-  (``rs256.py``, K6's plain version here).
-- The batch changes no group and no verdict; a key swapped between the
-  pre-pass and the judge, a 1024-bit key and a signature not below n go
-  to the host ``pow``; no batch is seen outside the group plan; with no
-  JWKS provisioned nothing is collected and nothing launches.
+- The ``groups`` span's verdict counts, ``jwks_loads`` and
+  ``jwks_snapshot`` equal what the planted shares give, every RS256
+  verdict from the group plan's batch (``rs256.py``, K6's plain version
+  here), every judge's keys from the JWKS the batch read: no judgement
+  opens or ``stat``s a JWKS file.
+- The batch changes no group and no verdict; a JWKS it holds no keys of
+  (missing, unreadable, no usable keys) gives the judges' verdicts and
+  details as without it; a key swapped after the pre-pass reaches the
+  next group plan, not this one; a 1024-bit key and a signature not
+  below n go to the host ``pow``; no batch is seen outside the group
+  plan, where the fleet audit and the doctor see a JWKS rotated between
+  two calls; with no JWKS provisioned nothing is collected and nothing
+  launches.
 - The reference's RS256 check agrees with the port's
   ``identity._rsa_pkcs1_sha256_verify`` on valid and forged signatures.
 - With the signature check skipped, the require flags cleared or the
@@ -190,7 +196,13 @@ VERIFIED = ("id_ok", "id_expired", "id_invalid", "att_ok", "att_expired",
             "att_mismatch")
 
 
+def warm_identity_jwks():
+    """The identity JWKS cached on its mtime, as after an earlier plan."""
+    assert tidentity._jwks_for_env()
+
+
 def test_the_groups_span_counts_each_verdict(fleet):
+    warm_identity_jwks()
     port_groups(fleet[1])
     attrs = groups_attrs()
     want, loads = planted_counts(fleet)
@@ -198,9 +210,14 @@ def test_the_groups_span_counts_each_verdict(fleet):
     assert got == {k: v for k, v in want.items() if v}
     _, counts = reference_tally(port_groups(fleet[1]), fleet)
     assert dict(counts) == got
-    # the pre-pass reads the attestation JWKS once; the judge still
-    # reads it for every document
-    assert attrs["jwks_loads"] == loads + 1
+    # the pre-pass reads the attestation JWKS once (the identity JWKS is
+    # cached on its mtime); each judgement that reaches its key lookup
+    # takes the keys the pre-pass read: every attestation token, every
+    # identity token but the replayed ones (their binding fails first)
+    assert attrs["jwks_loads"] == 1
+    assert attrs["jwks_snapshot"] == loads + sum(
+        v for k, v in got.items() if k.startswith("id_")) \
+        - got.get("id_mismatch", 0)
     assert attrs["rsa_host"] == 0
     assert attrs["rsa_batched"] == sum(got.get(k, 0) for k in VERIFIED)
     assert attrs["identity_s"] > 0 and attrs["attestation_s"] > 0
@@ -276,6 +293,7 @@ def count_launches(monkeypatch):
 
 def test_the_batch_changes_no_group_and_no_verdict(fleet, monkeypatch):
     launches = count_launches(monkeypatch)
+    warm_identity_jwks()
     batched = port_groups(fleet[1])
     with_batch = groups_attrs()
     assert len(launches) == 1 and launches[0] >= with_batch["rsa_batched"]
@@ -285,14 +303,19 @@ def test_the_batch_changes_no_group_and_no_verdict(fleet, monkeypatch):
     assert verdicts(without) == verdicts(with_batch)
     assert len(launches) == 1
     assert without["rsa_batched"] == without["rsa_host"] == 0
-    assert without["jwks_loads"] == with_batch["jwks_loads"] - 1
+    # with the batch the pre-pass's one read serves every judge; without
+    # it the attestation judge reads the file for every token
+    assert with_batch["jwks_loads"] == 1
+    assert without["jwks_loads"] == planted_counts(fleet)[1]
+    assert without["jwks_snapshot"] == 0 < with_batch["jwks_snapshot"]
 
 
-def swap_identity_key(fleet):
-    """The identity JWKS with its first kid's modulus replaced by
-    another key's (a rotation that reuses the kid), the file's mtime
-    moved so the identity judge reads it again."""
-    path = fleet[5]["TPU_CC_IDENTITY_JWKS_FILE"]
+def swap_key(fleet, var="TPU_CC_IDENTITY_JWKS_FILE"):
+    """The JWKS that ``var`` names (the identity one by default) with its
+    first kid's modulus replaced by another key's (a rotation that reuses
+    the kid), the file's mtime moved so the identity judge reads it
+    again."""
+    path = fleet[5][var]
     jwks = json.loads(pathlib.Path(path).read_text())
     other = A.make_key("swapped", jwks["keys"][0]["kid"], 2048, 8)
     jwks["keys"][0]["n"] = tidentity._b64url(other.n.to_bytes(256, "big"))
@@ -303,38 +326,173 @@ def swap_identity_key(fleet):
 
 def test_a_key_swapped_after_the_pre_pass_is_checked_on_the_host(
         fleet, monkeypatch):
+    """A key swapped after the pre-pass is checked by the next group plan:
+    the one under way judges every document under the JWKS it began
+    with, whose keys K6 verified, and leaves nothing to the host."""
     path = fleet[5]["TPU_CC_IDENTITY_JWKS_FILE"]
     saved = pathlib.Path(path).read_text()
-    port_groups(fleet[1])
-    unswapped = verdicts(groups_attrs())
+    unswapped = port_groups(fleet[1])
+    unswapped_attrs = groups_attrs()
     real = rs256.prepare
 
     def prepare_then_swap(annotations):
         out = real(annotations)
-        swap_identity_key(fleet)
+        swap_key(fleet)
         return out
 
     try:
         monkeypatch.setattr(rs256, "prepare", prepare_then_swap)
         late = port_groups(fleet[1])
         late_attrs = groups_attrs()
-        # the same swap before the pre-pass: every verdict batched
-        pathlib.Path(path).write_text(saved)
+        # the next group plan, the swapped file left in place
         monkeypatch.setattr(rs256, "prepare", real)
-        swap_identity_key(fleet)
+        following = port_groups(fleet[1])
+        following_attrs = groups_attrs()
+        # the same swap before the pre-pass
+        pathlib.Path(path).write_text(saved)
+        swap_key(fleet)
         early = port_groups(fleet[1])
         early_attrs = groups_attrs()
     finally:
         pathlib.Path(path).write_text(saved)
         os.utime(path, ns=(time.time_ns(), time.time_ns() + 2 * 10 ** 9))
-    assert late == early
-    assert verdicts(late_attrs) == verdicts(early_attrs)
+    assert late == unswapped
+    assert verdicts(late_attrs) == verdicts(unswapped_attrs)
+    assert late_attrs["rsa_host"] == 0
+    assert (late_attrs["rsa_batched"], late_attrs["jwks_snapshot"]) == (
+        unswapped_attrs["rsa_batched"], unswapped_attrs["jwks_snapshot"])
+    assert following == early
+    assert verdicts(following_attrs) == verdicts(early_attrs)
     # the swapped kid's tokens no longer verify
-    assert verdicts(late_attrs)["id_invalid"] > unswapped["id_invalid"]
-    assert early_attrs["rsa_host"] == 0
-    assert late_attrs["rsa_host"] > 0
-    assert late_attrs["rsa_batched"] + late_attrs["rsa_host"] \
-        == early_attrs["rsa_batched"]
+    assert verdicts(following_attrs)["id_invalid"] \
+        > verdicts(unswapped_attrs)["id_invalid"]
+    assert following_attrs["rsa_host"] == early_attrs["rsa_host"] == 0
+
+
+JWKS_VARS = ("TPU_CC_IDENTITY_JWKS_FILE", "TPU_CC_ATTESTATION_JWKS_FILE")
+
+
+def spy_file_calls(monkeypatch):
+    """Each ``open`` and ``os.stat`` call of ``identity`` and ``attest``,
+    as seen from their own namespaces: ``(inside a group plan, call,
+    path)``."""
+    calls = []
+
+    def seen(call, path):
+        calls.append((tidentity.rs256_batch.get() is not None, call,
+                      str(path)))
+
+    def spy_open(path, *args, **kwargs):
+        seen("open", path)
+        return open(path, *args, **kwargs)
+
+    class Os:
+        def __getattr__(self, name):
+            return getattr(os, name)
+
+        @staticmethod
+        def stat(path, *args, **kwargs):
+            seen("stat", path)
+            return os.stat(path, *args, **kwargs)
+
+    for module in (tidentity, tattest):
+        monkeypatch.setattr(module, "open", spy_open, raising=False)
+        monkeypatch.setattr(module, "os", Os())
+    return calls
+
+
+def test_no_judgement_opens_or_stats_a_jwks_file(fleet, monkeypatch):
+    calls = spy_file_calls(monkeypatch)
+    port_groups(fleet[1])
+    identity_jwks, attestation_jwks = (fleet[5][v] for v in JWKS_VARS)
+    assert groups_attrs()["jwks_snapshot"] > 0
+    # the pre-pass, before the judges, reads both files as they would
+    assert {("stat", identity_jwks), ("open", attestation_jwks)} <= {
+        (call, path) for inside, call, path in calls if not inside}
+    assert [c for c in calls if c[0] and c[2] in (
+        identity_jwks, attestation_jwks)] == []
+
+
+def evidence_of(nodes):
+    """``(node, evidence annotation or None)`` of each node."""
+    return [(n["metadata"]["name"], (n["metadata"].get("annotations")
+                                     or {}).get(G.EVIDENCE_ANNOTATION))
+            for n in nodes]
+
+
+#: a JWKS whose only key is not RSA
+EC_ONLY = json.dumps({"keys": [{"kty": "EC", "kid": "ec", "crv": "P-256",
+                                "x": "AA", "y": "AA"}]})
+
+
+@pytest.mark.parametrize("var,text,detail", [
+    (JWKS_VARS[1], None, "JWKS unreadable"),
+    (JWKS_VARS[1], '{"keys": [', "JWKS unreadable"),
+    (JWKS_VARS[1], EC_ONLY, "not in JWKS"),
+    (JWKS_VARS[0], EC_ONLY, "RS256 signature needs Google JWKS"),
+], ids=["attestation_missing", "attestation_unreadable",
+        "attestation_no_rsa_keys", "identity_no_usable_keys"])
+def test_a_jwks_the_batch_holds_no_keys_of_is_judged_as_without_it(
+        var, text, detail, fleet, tmp_path, monkeypatch):
+    path = tmp_path / "jwks.json"
+    if text is not None:
+        path.write_text(text)
+    monkeypatch.setenv(var, str(path))
+    annotations = evidence_of(fleet[1])
+    docs = [(name, json.loads(raw)) for name, raw in annotations if raw]
+
+    def judged():
+        return [(tidentity.judge_identity(doc, name),
+                 tattest.judge_attestation(doc, name)) for name, doc in docs]
+
+    without = judged()
+    batch, _ = rs256.prepare(annotations)
+    assert list(batch.jwks) == [fleet[5][v] for v in JWKS_VARS if v != var]
+    scope = tidentity.rs256_batch.set(batch)
+    try:
+        within = judged()
+    finally:
+        tidentity.rs256_batch.reset(scope)
+    assert within == without
+    assert any(detail in d for pair in without for _, d in pair)
+    assert batch.snapshot_hits > 0 and batch.batched > 0
+
+
+@pytest.mark.parametrize("var", JWKS_VARS, ids=["identity", "attestation"])
+def test_outside_the_group_plan_a_rotated_jwks_is_read_again(var, fleet):
+    """The fleet audit and the doctor judge with no group plan around
+    them: a JWKS rotated between two of their calls reaches the second,
+    after a group plan has come and gone."""
+    from tpu_cc_manager_torch import doctor
+    from tpu_cc_manager_torch.evidence import audit_evidence
+
+    identity = var == JWKS_VARS[0]
+    check = doctor._identity_check if identity \
+        else doctor._attestation_check
+    bucket = "identity_mismatch" if identity else "attestation_mismatch"
+    nodes = fleet[1]
+    docs = [(name, json.loads(raw)) for name, raw in evidence_of(nodes)
+            if raw]
+
+    def judged():
+        checks = []
+        for name, doc in docs:
+            check(checks, doc, name)
+        return (len(audit_evidence(nodes)[bucket]),
+                [c["severity"] for c in checks].count("fail"))
+
+    port_groups(nodes)
+    path = fleet[5][var]
+    saved = pathlib.Path(path).read_text()
+    before = judged()
+    try:
+        swap_key(fleet, var)
+        after = judged()
+    finally:
+        pathlib.Path(path).write_text(saved)
+        os.utime(path, ns=(time.time_ns(), time.time_ns() + 2 * 10 ** 9))
+    assert after[0] > before[0] and after[1] > before[1]
+    assert tidentity.rs256_batch.get() is None
 
 
 def test_keys_and_signatures_k6_does_not_take_go_to_the_host(monkeypatch):

@@ -72,11 +72,14 @@ OWNED = {
         "from contextvars import ContextVar": "new: for rs256_batch",
         "jwks_loads": "new: JWKS files read, on the group plan's span",
         "load_jwks": "counts each read",
+        "_jwks_for_env": "takes the group plan's snapshot first",
         "rs256_batch": "new: the group plan's RS256 batch (kernel K6)",
+        "_snapshot_keys": "new: the group plan's JWKS keys for a path",
         "_rsa_pkcs1_sha256_verify": "answers from the batch where it can",
         "_signed_parts": "new: one decode for every RS256 check",
         "verify_token": "decodes through _signed_parts"},
-    "attest.py": {"_judge_cs_token": "decodes through identity._signed_parts"},
+    "attest.py": {"_judge_cs_token": "decodes through identity._signed_parts;"
+                                     " keys from the group plan's snapshot"},
 }
 
 

@@ -14,7 +14,8 @@ One ``Rollout.run()`` opens, on ``trace.get_tracer()``::
                                 evidence_docs, evidence_s, identity_s,
                                 attestation_s, id_<verdict> and
                                 att_<verdict> for each verdict, jwks_loads,
-                                rsa_batched, rsa_host, rsa_batch_s
+                                jwks_snapshot, rsa_batched, rsa_host,
+                                rsa_batch_s
 
 ``groups`` is re-seated under the closed ``preflight`` root (the same
 trace id), so it begins after the root ends. Every span keeps its
@@ -107,7 +108,7 @@ def fleet(shape):
     expect = {"groups": n_groups, "evidence_calls": converged,
               "evidence_docs": docs, "skipped": converged - lying,
               "planned": n_groups - converged + lying, "jwks_loads": 0,
-              "rsa_batched": 0, "rsa_host": 0}
+              "jwks_snapshot": 0, "rsa_batched": 0, "rsa_host": 0}
     expect.update((f"{axis}_{v}", 0) for axis in ("id", "att")
                   for v in ("ok", "missing", "expired", "mismatch",
                             "invalid", "unverifiable"))

@@ -451,7 +451,10 @@ def verify_quote(att: dict, expected_nonce: str, *,
 
 def _judge_cs_token(att: dict, expected_nonce: str) -> Tuple[str, str]:
     """Offline verification of a Confidential Space token against the
-    provisioned JWKS, nonce included."""
+    provisioned JWKS, nonce included. Inside a group plan the keys are
+    those its batch read when the plan began
+    (:func:`identity._snapshot_keys`); elsewhere the file is read for
+    each token."""
     token = att.get("token")
     if not isinstance(token, str) or token.count(".") != 2:
         return "invalid", "attestation token malformed"
@@ -462,7 +465,8 @@ def _judge_cs_token(att: dict, expected_nonce: str) -> Tuple[str, str]:
             "cannot be verified offline"
         )
     from tpu_cc_manager_torch.identity import (
-        _b64url_decode, _rsa_pkcs1_sha256_verify, _signed_parts, load_jwks,
+        _b64url_decode, _rsa_pkcs1_sha256_verify, _signed_parts,
+        _snapshot_keys, load_jwks,
     )
 
     try:
@@ -471,13 +475,15 @@ def _judge_cs_token(att: dict, expected_nonce: str) -> Tuple[str, str]:
         payload = json.loads(_b64url_decode(payload_b64))
     except Exception as e:
         return "invalid", f"attestation token undecodable: {e}"
-    try:
-        keys = load_jwks(jwks_path)
-    except Exception as e:
-        # an operator config error (truncated ConfigMap, unreadable
-        # mount) must read as unverifiable, never as a fleet-wide
-        # forgery alarm
-        return "unverifiable", f"JWKS unreadable: {e}"
+    keys = _snapshot_keys(jwks_path)
+    if keys is None:
+        try:
+            keys = load_jwks(jwks_path)
+        except Exception as e:
+            # an operator config error (truncated ConfigMap, unreadable
+            # mount) must read as unverifiable, never as a fleet-wide
+            # forgery alarm
+            return "unverifiable", f"JWKS unreadable: {e}"
     kid = header.get("kid")
     if kid not in keys:
         return "unverifiable", f"token kid {kid!r} not in JWKS"

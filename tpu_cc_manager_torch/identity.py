@@ -354,10 +354,14 @@ def load_jwks(path: str) -> dict:
 def _jwks_for_env() -> Optional[dict]:
     """JWKS from TPU_CC_IDENTITY_JWKS_FILE, cached on (path, mtime).
     Missing file is silent — the optional-ConfigMap posture, same as
-    the evidence key."""
+    the evidence key. Inside a group plan, the keys its batch read when
+    the plan began (:func:`_snapshot_keys`), with no ``stat``."""
     path = os.environ.get("TPU_CC_IDENTITY_JWKS_FILE", "")
     if not path:
         return None
+    keys = _snapshot_keys(path)
+    if keys is not None:
+        return keys
     try:
         mtime = os.stat(path).st_mtime
     except OSError:
@@ -387,6 +391,18 @@ def _jwks_for_env() -> Optional[dict]:
 #: the group plan's batch of RS256 verdicts (``rs256.Rs256Batch``): set by
 #: ``Rollout.run`` around one group plan's evidence checks, None elsewhere
 rs256_batch: ContextVar = ContextVar("rs256_batch", default=None)
+
+
+def _snapshot_keys(path: str) -> Optional[dict]:
+    """The keys ({kid: (n, e)}) the group plan's batch read from the
+    JWKS at ``path`` when the plan began, counted on the batch; None
+    outside a group plan and where that read gave no usable keys (the
+    caller then reads the file as it does elsewhere)."""
+    batch = rs256_batch.get()
+    keys = batch.jwks.get(path) if batch is not None else None
+    if keys is not None:
+        batch.snapshot_hits += 1
+    return keys
 
 
 def _rsa_pkcs1_sha256_verify(n: int, e: int, signing_input: bytes,

@@ -1068,8 +1068,9 @@ class Rollout:
                 ]
                 # the RS256 pre-pass: every signature the evidence check
                 # will verify, in one launch of K6; the judges answer
-                # from the batch (identity.rs256_batch) until the loop
-                # ends, and no verdict outlives this group plan
+                # from the batch (identity.rs256_batch) and take their
+                # JWKS from it until the loop ends, and no verdict or
+                # key outlives this group plan
                 batch = None
                 if self.verify_evidence:
                     batch, self._parsed = _rs256.prepare(
@@ -1130,6 +1131,8 @@ class Rollout:
                     planned=planned, evidence_calls=evidence_calls,
                     evidence_docs=evidence_docs, evidence_s=evidence_s,
                     jwks_loads=_identity.jwks_loads - jwks_loads,
+                    jwks_snapshot=(batch.snapshot_hits if batch is not None
+                                   else 0),
                     rsa_batched=batch.batched if batch is not None else 0,
                     rsa_host=batch.host if batch is not None else 0,
                     rsa_batch_s=rs256_batch_s,

@@ -15,8 +15,12 @@ what K6 takes in one launch on the planner's device. The rollout then sets
 ``identity._rsa_pkcs1_sha256_verify`` answers from the batch when its exact
 inputs ``(n, e, digest, sig)`` are there and runs the host ``pow``
 otherwise (another key size, a signature not of the key's length or not
-below n, a key rotated since the batch was made). No verdict outlives the
-group plan, and no other caller sees one.
+below n). The batch also keeps the key maps :func:`prepare` read, by the
+path of the file each came from (:attr:`Rs256Batch.jwks`): the judges take
+their keys from it (:func:`identity._snapshot_keys`), so one group plan
+judges every document under the JWKS it began with, the keys K6 verified
+under, with no file read for each document. No verdict and no key map
+outlives the group plan, and no other caller sees one.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ class Rs256Batch:
     """One group plan's RS256 signatures and, after :meth:`run`, K6's
     verdict for each. ``batched`` counts the verifications answered from
     the batch, ``host`` those left to the host ``pow``; ``seconds`` is the
-    time :func:`prepare` took."""
+    time :func:`prepare` took. ``jwks`` maps each JWKS file whose read gave
+    usable keys to those keys ({kid: (n, e)}), and ``snapshot_hits``
+    counts the judgements that took their keys from it."""
 
     def __init__(self) -> None:
         self._index: Dict[Tuple[int, int, bytes, bytes], int] = {}
@@ -56,6 +62,8 @@ class Rs256Batch:
         self.batched = 0
         self.host = 0
         self.seconds = 0.0
+        self.jwks: Dict[str, dict] = {}
+        self.snapshot_hits = 0
 
     def add(self, n: int, e: int, digest: bytes, sig: bytes) -> None:
         """Queue one verification, if K6 takes it: a 2048-bit key, a
@@ -153,10 +161,9 @@ def _queue(batch: Rs256Batch, token: object, keys: dict,
         batch.add(n, e, hashlib.sha256(signing_input).digest(), sig)
 
 
-def _attestation_keys() -> Optional[dict]:
-    """The attestation JWKS, read once, or None where none is
-    provisioned or it cannot be read (the judge then says so)."""
-    path = os.environ.get("TPU_CC_ATTESTATION_JWKS_FILE", "")
+def _attestation_keys(path: str) -> Optional[dict]:
+    """The attestation JWKS at ``path``, read once, or None where none
+    is provisioned or it cannot be read (the judge then says so)."""
     if not path:
         return None
     try:
@@ -170,13 +177,18 @@ def prepare(annotations: Iterable[Tuple[str, Optional[str]]]
     """The batch for the evidence annotations ``(node, annotation or
     None)`` the group plan will judge, verified, and each document as
     parsed; ``(None, {})`` when no JWKS is provisioned, so that nothing
-    in the input can reach an RS256 check."""
+    in the input can reach an RS256 check. The batch keeps each JWKS
+    that gave usable keys, by its path, for the judges."""
     t0 = time.monotonic()
+    id_path = os.environ.get("TPU_CC_IDENTITY_JWKS_FILE", "")
+    att_path = os.environ.get("TPU_CC_ATTESTATION_JWKS_FILE", "")
     id_keys = _jwks_for_env()
-    att_keys = _attestation_keys()
+    att_keys = _attestation_keys(att_path)
     if not id_keys and not att_keys:
         return None, {}
     batch = Rs256Batch()
+    batch.jwks = {path: keys for path, keys in ((id_path, id_keys),
+                                                (att_path, att_keys)) if keys}
     parsed: Dict[str, Parsed] = {}
     id_headers: Dict[str, object] = {}
     att_headers: Dict[str, object] = {}
